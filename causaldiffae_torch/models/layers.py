@@ -1,0 +1,158 @@
+"""NN primitives for the UNet denoiser (NCHW inside).
+
+Port of ``causaldiffae_tpu/models/layers.py:44-235``. Parameters are float32
+and are cast to the compute dtype at each call, as flax does with
+``dtype=bf16``. Conv and Linear keep torch's default init, which is the
+JAX package's ``torch_kernel_init``/``torch_bias_init``; the ResBlock's last
+conv is zero-initialised. Attribute names follow the reference torch
+``state_dict`` keys (``in_layers.0``, ``emb_layers.1``, ``out_layers.3``, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal timestep embeddings, float32, cos then sin (reference `nn.py:551-569`)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps.float()[:, None] * freqs[None]
+    embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+    return embedding
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied in ``dtype`` (input, weight and bias cast)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied in ``dtype`` (input, weight and bias cast)."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                    layer.stride, layer.padding)
+
+
+def conv3x3(ch_in: int, ch_out: int, stride: int = 1, zero_init: bool = False) -> nn.Conv2d:
+    layer = nn.Conv2d(ch_in, ch_out, 3, stride=stride, padding=1)
+    if zero_init:
+        nn.init.zeros_(layer.weight)
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm(32) with float32 single-pass statistics.
+
+    ``causaldiffae_tpu/models/layers.py:138-154``: mean and E[x^2] in fp32,
+    var = E[x^2] - E[x]^2, eps 1e-5, affine in fp32, then a cast back to the
+    input dtype BEFORE the optional scale-shift ``y * (1 + scale) + shift``
+    and SiLU, which run in the input dtype.
+    """
+
+    def __init__(self, channels: int, num_groups: int = 32):
+        super().__init__(num_groups, channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, scale_shift=None, silu_after: bool = False):
+        orig_dtype = x.dtype
+        B, C = x.shape[:2]
+        G = self.num_groups
+        x32 = x.float().reshape(B, G, -1)
+        mean = x32.mean(dim=-1, keepdim=True)
+        msq = (x32 * x32).mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(msq - mean * mean + self.eps)
+        y = ((x32 - mean) * inv).reshape(x.shape)
+        bshape = (1, C) + (1,) * (x.ndim - 2)
+        y = y * self.weight.reshape(bshape) + self.bias.reshape(bshape)
+        y = y.to(orig_dtype)
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            cshape = (B, C) + (1,) * (x.ndim - 2)
+            y = y * (1 + scale.to(orig_dtype).reshape(cshape)) + shift.to(orig_dtype).reshape(cshape)
+        if silu_after:
+            y = y * torch.sigmoid(y)
+        return y
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample + 3x3 conv (reference `unet.py:51-79`)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = conv3x3(channels, channels)
+
+    def forward(self, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return conv(self.conv, x, self.dtype)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv (reference `unet.py:82-105`)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.op = conv3x3(channels, channels, stride=2)
+
+    def forward(self, x):
+        return conv(self.op, x, self.dtype)
+
+
+class ResBlock(nn.Module):
+    """Residual block with (scale-shift) GroupNorm timestep conditioning.
+
+    ``causaldiffae_tpu/models/layers.py:191-235``; dropout is a no-op at
+    inference and is kept only as the placeholder the reference's key
+    numbering needs (``out_layers.2``).
+    """
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
+                 use_scale_shift_norm: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = out_channels or channels
+        self.channels = channels
+        self.out_channels = out_ch
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.dtype = dtype
+        self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), conv3x3(channels, out_ch))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch if use_scale_shift_norm else out_ch))
+        self.out_layers = nn.Sequential(
+            GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(0.0), conv3x3(out_ch, out_ch, zero_init=True))
+        if out_ch == channels:
+            self.skip_connection = nn.Identity()
+        else:
+            self.skip_connection = nn.Conv2d(channels, out_ch, 1)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = self.in_layers[0](x, silu_after=True)
+        h = conv(self.in_layers[2], h, dt)
+        emb_out = linear(self.emb_layers[1], silu(emb), dt).to(h.dtype)
+        if self.use_scale_shift_norm:
+            scale, shift = torch.chunk(emb_out, 2, dim=-1)
+            h = self.out_layers[0](h, scale_shift=(scale, shift), silu_after=True)
+        else:
+            h = h + emb_out[:, :, None, None]
+            h = self.out_layers[0](h, silu_after=True)
+        h = conv(self.out_layers[3], h, dt)
+        if isinstance(self.skip_connection, nn.Conv2d):
+            skip = conv(self.skip_connection, x, dt)
+        else:
+            skip = x
+        return skip + h

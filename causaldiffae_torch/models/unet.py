@@ -1,0 +1,189 @@
+"""The CausalDiffAE UNet denoiser: the serving methods.
+
+Port of ``causaldiffae_tpu/models/unet.py:57-241``: ``denoise``, ``encode``,
+``causalize`` and ``encode_and_causalize``. The training ``__call__``,
+``feature_vectors`` and ``SuperResUNet`` belong to later slices.
+
+Public methods take and return NHWC images, as the JAX package's do; the
+blocks run NCHW inside. The module tree follows the reference torch
+``state_dict`` keys (``time_embed``, ``label_emb``, ``input_blocks.{i}.{j}``,
+``middle_block``, ``output_blocks``, ``out``, ``rep_emb``, ``up_emb``,
+``causal_mask``), so reference ``.pt`` files and flax weights carried by
+``utils/weights.py`` load with ``strict=True``.
+
+Cast points kept from the JAX package: the embedding is computed in fp32
+(time, label and ``up_emb`` denses) and then cast to the compute dtype; h is
+cast back to the input dtype before the output GroupNorm; the output conv
+runs in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .attention import AttentionBlock
+from .encoder import GaussianConvEncoder
+from .layers import Downsample, GroupNorm32, ResBlock, Upsample, conv, conv3x3, silu, timestep_embedding
+from .scm import CausalModeling
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class CausalUNet(nn.Module):
+    """UNet + causal representation conditioning."""
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Tuple[int, ...],
+                 channel_mult: Tuple[int, ...] = (1, 2, 4, 8), image_size: int = 28,
+                 num_classes: Optional[int] = None, c_dim: Optional[int] = None,
+                 rep_dim: Optional[int] = None, causal_modeling: bool = False,
+                 num_heads: int = 1, num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = False, n_vars: int = 4,
+                 adjacency=None, learn_adjacency: bool = False,
+                 reparam_var_scale: float = 1e-3, dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = False):
+        super().__init__()
+        self.model_channels = model_channels
+        self.num_classes = num_classes
+        self.c_dim = c_dim
+        self.rep_dim = rep_dim
+        self.causal_modeling = causal_modeling
+        self.reparam_var_scale = reparam_var_scale
+        self.dtype = dtype
+        ted = model_channels * 4
+        heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
+
+        self.time_embed = nn.Sequential(nn.Linear(model_channels, ted), nn.SiLU(),
+                                        nn.Linear(ted, ted))
+        if num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, ted)
+        if c_dim is not None:
+            self.c_emb = nn.Sequential(nn.Linear(c_dim, 256), nn.SiLU(), nn.Linear(256, ted))
+        if rep_dim is not None:
+            self.rep_emb = GaussianConvEncoder(in_channels, image_size, rep_dim,
+                                               num_vars=n_vars, dtype=dtype)
+            self.up_emb = nn.Linear(rep_dim, ted)
+        if causal_modeling:
+            self.causal_mask = CausalModeling(rep_dim, n_vars, adjacency, learn_adjacency)
+
+        def res(ch_in, ch_out):
+            return ResBlock(ch_in, ted, ch_out, use_scale_shift_norm, dtype)
+
+        def attn(ch, heads):
+            return AttentionBlock(ch, heads, use_kernels, dtype)
+
+        # Input (downsampling) stacks - reference `unet.py:388-433`.
+        input_blocks = [nn.ModuleList([conv3x3(in_channels, model_channels)])]
+        input_block_chans = [model_channels]
+        ch = model_channels
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, mult * model_channels)]
+                ch = mult * model_channels
+                if ds in attention_resolutions:
+                    layers.append(attn(ch, num_heads))
+                input_blocks.append(nn.ModuleList(layers))
+                input_block_chans.append(ch)
+            if level != len(channel_mult) - 1:
+                input_blocks.append(nn.ModuleList([Downsample(ch, dtype)]))
+                input_block_chans.append(ch)
+                ds *= 2
+        self.input_blocks = nn.ModuleList(input_blocks)
+
+        # Middle - reference `unet.py:438-456`.
+        self.middle_block = nn.ModuleList([res(ch, None), attn(ch, num_heads), res(ch, None)])
+
+        # Output (upsampling) stacks with skip concat - reference `unet.py:462-491`.
+        output_blocks = []
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
+                layers = [res(ch + input_block_chans.pop(), model_channels * mult)]
+                ch = model_channels * mult
+                if ds in attention_resolutions:
+                    layers.append(attn(ch, heads_up))
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch, dtype))
+                    ds //= 2
+                output_blocks.append(nn.ModuleList(layers))
+        self.output_blocks = nn.ModuleList(output_blocks)
+
+        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
+                                 conv3x3(model_channels, out_channels, zero_init=True))
+
+    # ------------------------------------------------------------------ #
+    def _apply_seq(self, modules, h, emb):
+        for m in modules:
+            if isinstance(m, ResBlock):
+                h = m(h, emb)
+            elif isinstance(m, nn.Conv2d):
+                h = conv(m, h, self.dtype)
+            else:
+                h = m(h)
+        return h
+
+    def _embed(self, t, y, c, z):
+        """Summed conditioning embedding, fp32 (reference `unet.py:545-617`)."""
+        emb = self.time_embed[2](silu(self.time_embed[0](
+            timestep_embedding(t, self.model_channels))))
+        if (y is not None) != (self.num_classes is not None):
+            raise ValueError("must specify y iff the model is class-conditional")
+        if self.num_classes is not None:
+            emb = emb + self.label_emb(y)
+        if self.c_dim is not None:
+            emb = emb + self.c_emb[2](silu(self.c_emb[0](c.float())))
+        if z is not None:
+            emb = emb + self.up_emb(z.float())
+        return emb
+
+    # ------------------------------------------------------------------ #
+    def denoise(self, x, t, y=None, c=None, z=None):
+        """eps prediction given explicit conditioning; x and eps are NHWC."""
+        emb = self._embed(t, y, c, z).to(self.dtype)
+        h = _nchw(x).to(self.dtype)
+        hs = []
+        for blocks in self.input_blocks:
+            h = self._apply_seq(blocks, h, emb)
+            hs.append(h)
+        h = self._apply_seq(self.middle_block, h, emb)
+        for blocks in self.output_blocks:
+            h = torch.cat([h, hs.pop()], dim=1)
+            h = self._apply_seq(blocks, h, emb)
+        h = h.to(x.dtype)
+        h = self.out[0](h, silu_after=True)
+        return _nhwc(conv(self.out[2], h, torch.float32))
+
+    def encode(self, x_start):
+        """Semantic encoder q(u | x0) -> (mu, var); x_start is NHWC."""
+        return self.rep_emb.encode(_nchw(x_start).to(self.dtype))
+
+    def causalize(self, mu):
+        """SCM pass u -> z_post (masking + per-var MLPs + add-back-noise)."""
+        return self.causal_mask(mu)
+
+    def encode_and_causalize(self, x_start, *, sample: bool = True,
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[torch.Tensor] = None):
+        """Encode, SCM, and draw z ~ N(z_post, reparam_var_scale).
+
+        The reparameterization noise is ``noise`` when given, else drawn from
+        ``generator``. With ``sample=False`` z is z_post.
+        """
+        mu, var = self.encode(x_start)
+        z_post = self.causalize(mu) if self.causal_modeling else mu
+        if not sample:
+            return mu, var, z_post, z_post
+        if noise is None:
+            noise = torch.randn(z_post.shape, generator=generator, device=z_post.device,
+                                dtype=z_post.dtype)
+        v = torch.full_like(z_post, self.reparam_var_scale)
+        return mu, var, z_post, z_post + torch.sqrt(v) * noise

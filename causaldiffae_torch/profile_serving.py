@@ -1,0 +1,100 @@
+"""Where the time of a counterfactual chain goes, on the card.
+
+Runs ``STEPS`` DDIM steps of the flagship preset's chain at batch ``BATCH``
+(random weights from ``SEED``; every weight filled, so that each block
+does real work) under ``torch.profiler``, and prints one JSON line: wall
+and device time per UNet call, the device's busy share (the sum of kernel
+times in the profiled window over the wall time of the same steps run
+without the profiler; one stream, so kernels do not overlap) and the
+kernels that take the most device time. Without device times in the trace
+it says so instead of printing a share.
+
+Usage: python -m causaldiffae_torch.profile_serving
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+PRESET = "morphomnist_causaldae"
+BATCH = 16
+STEPS = 20
+SEED = 0
+TOP = 12  # kernels listed in the report
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA device")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import create_diffusion, create_model, get_config
+    from .utils.weights import fill_normal_
+
+    cfg = get_config(PRESET)
+    model = create_model(cfg, device="cuda")
+    fill_normal_(model, torch.Generator().manual_seed(SEED), std=0.02)
+    diffusion = create_diffusion(cfg, eval_mode=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, s = BATCH, cfg.image_size
+    x = torch.randn(B, s, s, cfg.in_channels, generator=gen, device="cuda")
+    y = torch.arange(B, device="cuda") % 10
+    z = torch.randn(B, cfg.rep_dim, generator=gen, device="cuda")
+    model_fn = lambda xx, tt: model.denoise(xx, tt, y=y, z=z)
+
+    def chain(n):
+        xx = x
+        for t in range(diffusion.num_timesteps - 1, diffusion.num_timesteps - 1 - n, -1):
+            tt = torch.full((B,), t, dtype=torch.long, device="cuda")
+            xx = diffusion.ddim_sample(model_fn, xx, tt)["sample"]
+        return xx
+
+    with torch.inference_mode():
+        chain(3)  # warm-up: cuDNN plans, kernel build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain(STEPS)
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chain(STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+
+    from torch.autograd import DeviceType
+
+    # device-side events only: a CPU op's own "device time" repeats its kernels'
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(us for _, us, _ in kernels) / 1e3
+    kernels.sort(key=lambda k: -k[1])
+    report = {
+        "preset": PRESET, "batch": B, "unet_calls": STEPS,
+        "device": torch.cuda.get_device_name(0),
+        "wall_ms_per_unet_call": plain_wall_ms / STEPS,
+        "profiled_wall_ms_per_unet_call": wall_ms / STEPS,
+    }
+    if device_ms > 0:
+        report.update({
+            "device_ms_per_unet_call": device_ms / STEPS,
+            "device_busy_share": device_ms / plain_wall_ms,
+            "device_busy_share_profiled": device_ms / wall_ms,
+            "kernel_launches_per_unet_call": sum(c for _, _, c in kernels) / STEPS,
+            "top_kernels": [{"name": name[:80], "ms_per_unet_call": us / 1e3 / STEPS,
+                             "share_of_device_time": us / 1e3 / device_ms,
+                             "launches_per_unet_call": c / STEPS}
+                            for name, us, c in kernels[:TOP]],
+        })
+    else:
+        report["device_busy_share"] = "not measured: the trace holds no device times"
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()
