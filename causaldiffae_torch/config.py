@@ -161,11 +161,17 @@ class Config:
 
 
 def create_model(cfg: Config, device="cuda"):
-    """Build the CausalUNet from a Config, in eval mode on ``device``."""
+    """Build the CausalUNet from a Config, in eval mode on ``device``.
+
+    ``model.train()`` switches it to the training forward's semantics (the
+    encoder's BatchNorm on batch statistics)."""
     from .models.unet import CausalUNet
 
     if cfg.flow_based:
         raise NotImplementedError("the flow prior (flow_based=True) is not ported yet")
+    if cfg.dropout > 0:
+        raise NotImplementedError(f"dropout={cfg.dropout}: the port has no dropout "
+                                  "(every preset trains with 0.0)")
     model = CausalUNet(
         in_channels=cfg.in_channels,
         model_channels=cfg.num_channels,
@@ -184,6 +190,8 @@ def create_model(cfg: Config, device="cuda"):
         n_vars=cfg.n_vars,
         adjacency=ADJACENCY[cfg.dataset] if cfg.causal_modeling else None,
         learn_adjacency=cfg.learn_adjacency,
+        masking=cfg.masking,
+        drop_prob=cfg.drop_prob,
         reparam_var_scale=cfg.reparam_var_scale,
         dtype=cfg.dtype,
         use_kernels=cfg.use_kernels,

@@ -1,10 +1,11 @@
-"""Gaussian diffusion process: the serving subset.
+"""Gaussian diffusion process: the serving and training subsets.
 
-Port of ``causaldiffae_tpu/diffusion/process.py:84-320``: the q process, the
+Port of ``causaldiffae_tpu/diffusion/process.py:84-462``: the q process, the
 eps <-> x0 conversions, ``p_mean_variance`` (classifier-free guidance
-``w * cond + (1 - w) * uncond``, learned-range variance, clipping) and the
-single reverse steps the sampling chains loop over. The VLB terms and the
-training losses belong to the training slice and are not here.
+``w * cond + (1 - w) * uncond``, learned-range variance, clipping), the
+single reverse steps the sampling chains loop over, the VLB terms and the
+CausalDiffAE variational objective (``training_losses`` with the masked
+representation KL).
 
 The model is a black-box callable ``model_fn(x, t_model) -> eps`` on NHWC
 tensors, with all conditioning bound by the caller. The coefficient arrays
@@ -15,11 +16,13 @@ device once, on first use there. Randomness comes from an explicit
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .losses import discretized_gaussian_log_likelihood, kl_normal, mean_flat, normal_kl
 from .respace import respace_schedule, space_timesteps
 from .schedule import DiffusionSchedule, get_named_beta_schedule, make_schedule
 
@@ -275,6 +278,119 @@ class GaussianDiffusion:
             + torch.sqrt(1 - alpha_bar_next) * eps
         )
         return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
+    # ------------------------------------------------------------------ #
+    # VLB terms
+    # ------------------------------------------------------------------ #
+    def vb_terms_bpd(self, model_fn, x_start, x_t, t, clip_denoised=True):
+        """One VLB term in bits/dim: the decoder NLL at t = 0, else the KL."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, clip_denoised=clip_denoised)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"]))
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        output = torch.where(t == 0, decoder_nll, kl / math.log(2.0))
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def prior_bpd(self, x_start):
+        """Prior KL term KL(q(x_T | x_0) || N(0, I)) in bits/dim."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long,
+                       device=x_start.device)
+        qt_mean, _, qt_log_variance = self.q_mean_variance(x_start, t)
+        return mean_flat(normal_kl(qt_mean, qt_log_variance, 0.0, 0.0)) / math.log(2.0)
+
+    # ------------------------------------------------------------------ #
+    # CausalDiffAE variational objective
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def label_prior_mean(c: torch.Tensor, dim: int, scale=None) -> torch.Tensor:
+        """Per-variable latent prior means from normalized labels: variable
+        j's latent block has prior mean c[:, j] over its ``dim`` entries."""
+        c = c.float()
+        if scale is not None:
+            scale = torch.as_tensor(scale, dtype=torch.float32, device=c.device)
+            c = (c - scale[None, :, 0]) / scale[None, :, 1]
+        return c[:, :, None].expand(*c.shape, dim)
+
+    def representation_loss(self, mu, var, z_post, causal_modeling, mask, c):
+        """KL objective on the semantic representation.
+
+        KL(q(u|x) || N(0, I)) with q = (mu, var), ``var`` being the encoder's
+        softplus'd output used as a variance; with ``causal_modeling`` plus
+        sum_i KL(N(z_post_i, I) || N(c_i, I)). With a keep-mask the result
+        is the scalar sum(kl * mask) / max(sum(mask), 1) (the denominator
+        guarded against an all-dropped batch); without one, per sample [N].
+        """
+        num_vars = c.shape[1]
+        dim = mu.shape[1] // num_vars
+        kld = kl_normal(mu, var, torch.zeros_like(mu), torch.ones_like(var))
+        if causal_modeling:
+            zb = z_post.reshape(-1, num_vars, dim)
+            ones = torch.ones_like(zb)
+            kld = kld + kl_normal(zb, ones, self.label_prior_mean(c, dim), ones).sum(dim=1)
+        if mask is not None:
+            return (kld * mask).sum() / mask.sum().clamp(min=1.0)
+        return kld
+
+    def training_losses(self, forward_fn: Callable[[torch.Tensor, torch.Tensor],
+                                                   Tuple[torch.Tensor, Dict]],
+                        x_start: torch.Tensor, t: torch.Tensor, *,
+                        c: Optional[torch.Tensor] = None, rep_cond: bool = False,
+                        causal_modeling: bool = False, kl_weight=0.0,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Training loss terms for one batch of timesteps.
+
+        ``forward_fn(x_t, t_model)`` returns ``(model_output, aux)``, where
+        ``aux`` carries mu/var/z_post/mask from the encode path (empty
+        without ``rep_cond``). The noise is ``noise`` when given, else drawn
+        from ``generator``. ``kl_weight`` is the annealed weight of the
+        representation KL. The learned-sigma ``vb`` term sees the mean
+        detached, so it trains the variance only.
+        """
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        x_t = self.q_sample(x_start, t, noise)
+        t_model = self.model_t(t)
+
+        terms: Dict[str, torch.Tensor] = {}
+        if self.loss_type in (LossType.KL, LossType.RESCALED_KL):
+            terms["loss"] = self.vb_terms_bpd(lambda xx, tt: forward_fn(xx, tt)[0], x_start,
+                                              x_t, t, clip_denoised=False)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output, aux = forward_fn(x_t, t_model)
+        if rep_cond:
+            terms["kld_rep"] = self.representation_loss(
+                aux["mu"], aux["var"], aux["z_post"], causal_modeling, aux.get("mask"), c)
+
+        if self.var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, model_var_values = torch.chunk(model_output, 2, dim=-1)
+            frozen = torch.cat([model_output.detach(), model_var_values], dim=-1)
+            terms["vb"] = self.vb_terms_bpd(lambda *_: frozen, x_start, x_t, t,
+                                            clip_denoised=False)["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+
+        if self.mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+
+        if "vb" in terms:
+            terms["loss"] = terms["mse"] + terms["vb"]
+        elif rep_cond:
+            terms["loss"] = terms["mse"] + kl_weight * terms["kld_rep"]
+        else:
+            terms["loss"] = terms["mse"]
+        return terms
 
 
 def create_diffusion(*, steps: int = 1000, learn_sigma: bool = False,

@@ -1,4 +1,4 @@
-"""Causal semantic encoder (eval mode).
+"""Causal semantic encoder.
 
 Port of ``causaldiffae_tpu/models/encoder.py:42-82``: a Conv(k3, s2, p1) ->
 BatchNorm -> LeakyReLU stack, flattened, and two heads,
@@ -8,9 +8,11 @@ as torch's; weights carried from flax already hold that permutation
 (``utils/weights.py``). Attribute names follow the reference keys
 (``encoder.{i}.{0,1}``, ``fc_mu``, ``fc_var``).
 
-BatchNorm runs on its running statistics only. Training mode, where flax
-and torch update the running variance differently (biased vs unbiased),
-belongs to the training slice.
+BatchNorm follows flax's semantics (the JAX package is the reference), not
+torch's: in eval mode it normalises with the running statistics; in train
+mode (:func:`batch_norm_train`) with the batch's, and it updates the running
+variance with the BIASED batch variance, where ``F.batch_norm`` would use
+the unbiased one.
 """
 
 from __future__ import annotations
@@ -22,6 +24,29 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import conv
+
+BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm with flax 0.12.3's ``_compute_stats`` semantics.
+
+    The statistics are taken in fp32 over (N, H, W): mean and E[x^2], the
+    variance ``E[x^2] - E[x]^2`` clipped at 0; the same mean and variance
+    normalise the batch, ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
+    The running buffers are updated IN PLACE, under ``no_grad``, with the
+    biased batch variance: ``running = 0.9 * running + 0.1 * batch``.
+    Returns fp32.
+    """
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x32 - mean[None, :, None, None]) * mul[None, :, None, None] \
+        + bn.bias[None, :, None, None]
 
 
 def default_hidden_dims(num_vars: int) -> Tuple[int, ...]:
@@ -56,15 +81,17 @@ class GaussianConvEncoder(nn.Module):
         self.fc_var = nn.Linear(ch * spatial * spatial, latent_dim)
 
     def encode(self, x: torch.Tensor):
-        """x: NCHW -> (mu, var), both fp32."""
-        if self.training:
-            raise RuntimeError("the encoder's training mode is not ported; call .eval()")
+        """x: NCHW -> (mu, var), both fp32. In train mode BatchNorm uses the
+        batch's statistics and updates its running buffers in place."""
         h = x
         for block in self.encoder:
             bn = block[1]
-            h = conv(block[0], h, self.dtype).float()
-            h = F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                             training=False, eps=bn.eps)
+            h = conv(block[0], h, self.dtype)
+            if self.training:
+                h = batch_norm_train(h, bn)
+            else:
+                h = F.batch_norm(h.float(), bn.running_mean, bn.running_var, bn.weight,
+                                 bn.bias, training=False, eps=bn.eps)
             h = F.leaky_relu(h, 0.01)
         h = h.flatten(1)
         mu = self.fc_mu(h)

@@ -1,8 +1,11 @@
-"""The CausalDiffAE UNet denoiser: the serving methods.
+"""The CausalDiffAE UNet denoiser.
 
-Port of ``causaldiffae_tpu/models/unet.py:57-241``: ``denoise``, ``encode``,
-``causalize`` and ``encode_and_causalize``. The training ``__call__``,
-``feature_vectors`` and ``SuperResUNet`` belong to later slices.
+Port of ``causaldiffae_tpu/models/unet.py:57-277``: ``denoise``, ``encode``,
+``causalize``, ``encode_and_causalize`` and the training forward
+(``forward``, the counterpart of ``__call__``). ``feature_vectors`` and
+``SuperResUNet`` belong to later slices. The encoder's BatchNorm follows the
+module's mode: ``model.train()`` normalises with the batch's statistics and
+updates the running ones (``models/encoder.py``).
 
 Public methods take and return NHWC images, as the JAX package's do; the
 blocks run NCHW inside. The module tree follows the reference torch
@@ -48,15 +51,17 @@ class CausalUNet(nn.Module):
                  rep_dim: Optional[int] = None, causal_modeling: bool = False,
                  num_heads: int = 1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = False, n_vars: int = 4,
-                 adjacency=None, learn_adjacency: bool = False,
-                 reparam_var_scale: float = 1e-3, dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = False):
+                 adjacency=None, learn_adjacency: bool = False, masking: bool = False,
+                 drop_prob: float = 0.5, reparam_var_scale: float = 1e-3,
+                 dtype: torch.dtype = torch.float32, use_kernels: bool = False):
         super().__init__()
         self.model_channels = model_channels
         self.num_classes = num_classes
         self.c_dim = c_dim
         self.rep_dim = rep_dim
         self.causal_modeling = causal_modeling
+        self.masking = masking
+        self.drop_prob = drop_prob
         self.reparam_var_scale = reparam_var_scale
         self.dtype = dtype
         ted = model_channels * 4
@@ -187,3 +192,39 @@ class CausalUNet(nn.Module):
                                 dtype=z_post.dtype)
         v = torch.full_like(z_post, self.reparam_var_scale)
         return mu, var, z_post, z_post + torch.sqrt(v) * noise
+
+    def forward(self, x, t, y=None, c=None, x_start=None, z=None, *,
+                rep_noise: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward: returns ``(eps, aux)``, aux = {mu, var, z_post, mask}.
+
+        With a representation and no ``z``: encode x_start, run the SCM, and
+        draw z ~ N(z_post, var * reparam_var_scale) (the train-time variance
+        is the encoder's, scaled). With ``masking`` a Bernoulli(1 - drop_prob)
+        keep-mask per sample gates both z and z_post. ``rep_noise`` (the
+        reparameterization's standard normal draw, z_post's shape) and
+        ``keep`` ([B] of 0/1) are used when given, else drawn from
+        ``generator``. x, x_start and eps are NHWC.
+        """
+        aux = {}
+        if self.rep_dim is not None and z is None:
+            mu, var = self.encode(x_start)
+            z_post = self.causalize(mu) if self.causal_modeling else mu
+            if rep_noise is None:
+                rep_noise = torch.randn(z_post.shape, generator=generator,
+                                        device=z_post.device, dtype=z_post.dtype)
+            z = z_post + torch.sqrt(var * self.reparam_var_scale) * rep_noise
+            if not self.causal_modeling:
+                z_post = None
+            mask = None
+            if self.masking:
+                if keep is None:
+                    keep = torch.bernoulli(torch.full((z.shape[0],), 1.0 - self.drop_prob,
+                                                      device=z.device), generator=generator)
+                keep = keep.to(z.dtype)
+                z = z * keep[:, None]
+                if z_post is not None:
+                    z_post = z_post * keep[:, None]
+                mask = keep
+            aux = {"mu": mu, "var": var, "z_post": z_post, "mask": mask}
+        return self.denoise(x, t, y=y, c=c, z=z), aux

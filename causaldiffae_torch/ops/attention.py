@@ -1,17 +1,23 @@
-"""Fused QKV self-attention forward: the CUDA kernel's wrapper and plain version.
+"""Fused QKV self-attention: the CUDA kernels' wrappers, plain versions and gradient.
 
-The kernel (``csrc/attention_fwd.cu``) replaces the JAX package's two
+The forward kernel (``csrc/attention_fwd.cu``) replaces the JAX package's two
 forward Pallas kernels, K1 ``_attn_kernel`` and K3 ``_attn_kernel_t``
-(``causaldiffae_tpu/ops/attention_pallas.py:116-149,280-305``), which compute
-one function in two orientations. Both public entry names are kept so the
-routing in ``models/attention.py`` stays testable; both launch the same
-kernel. The TPU-only choices (query chunking, deferred normalisation, the
-full-lane orientation) are not part of the math and are not carried over.
+(``causaldiffae_tpu/ops/attention_pallas.py:116-149,280-305``); the backward
+kernel (``csrc/attention_bwd.cu``) replaces their custom VJPs, K2
+``_attn_bwd_kernel`` and K4 ``_attn_bwd_kernel_t`` (``:184-248,308-381``).
+Each pair computes one function in two orientations, so one kernel serves
+both. Both public entry names are kept so the routing in
+``models/attention.py`` stays testable; both go through one
+``torch.autograd.Function`` whose forward launches the forward kernel and
+whose backward launches the backward kernel, saving only ``qkv`` (the one
+residual K2 keeps, ``attention_pallas.py:409``). The TPU-only choices (query
+chunking, deferred normalisation, the full-lane orientation) are not part of
+the math and are not carried over.
 
 ``qkv`` is ``[B, T, 3C]`` with the head-major ``[q k v]`` interleave and the
-output is ``[B, T, C]``, both in the input dtype. On a CPU tensor the wrapper
-runs :func:`attention_plain`; on a CUDA tensor it launches the kernel or
-raises. ``attention_fwd.launches`` counts kernel launches.
+output is ``[B, T, C]``, both in the input dtype. On a CPU tensor each wrapper
+runs its plain version; on a CUDA tensor it launches its kernel or raises.
+``attention_fwd.launches`` and ``attention_bwd.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import torch
 
 from . import _build
 
-__all__ = ["attention_plain", "attention_fwd", "fused_qkv_attention",
-           "fused_qkv_attention_t", "rounding_scale", "KERNEL_HEAD_DIMS"]
+__all__ = ["attention_plain", "attention_fwd", "attention_bwd_plain", "attention_bwd_exact",
+           "attention_bwd",
+           "fused_qkv_attention", "fused_qkv_attention_t", "rounding_scale",
+           "bwd_rounding_scale", "KERNEL_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
@@ -76,15 +84,80 @@ def rounding_scale(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return attention_plain(parts.reshape(B, T, threeC), num_heads).float()
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("attention_fwd")
-    fn = lib.cdae_attention_fwd
+def _bwd_terms(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, *,
+               magnitude: bool = False, exact: bool = False):
+    """K2's gradient step by step in fp32 einsums. With ``magnitude``, the
+    same products on the absolute values of their terms; with ``exact``, in
+    fp64 with p and ds left unrounded."""
+    B, T, threeC = qkv.shape
+    C = threeC // 3
+    d = C // num_heads
+    dt = qkv.dtype
+    acc = torch.float64 if exact else torch.float32
+    rnd = (lambda a: a) if exact else (lambda a: a.to(dt).to(acc))
+    q, k, v = qkv.reshape(B, T, num_heads, 3 * d).split(d, dim=-1)
+    scale = kernel_scale(d, dt)
+    q_s, k_s = (q * scale).to(acc), (k * scale).to(acc)   # rounded to dt first
+    v, g = v.to(acc), g.reshape(B, T, num_heads, d).to(acc)
+    fix = torch.abs if magnitude else (lambda a: a)
+    p = torch.softmax(torch.einsum("bthd,bshd->bhts", q_s, k_s), dim=-1)
+    dv = torch.einsum("bhts,bthd->bshd", rnd(p), fix(g))
+    dp = torch.einsum("bthd,bshd->bhts", fix(g), fix(v))
+    dsum = (fix(dp) * p).sum(-1, keepdim=True)
+    ds = rnd(p * (dp + dsum) if magnitude else p * (dp - dsum))
+    dq = torch.einsum("bhts,bshd->bthd", ds, fix(k_s)) * scale.to(acc)
+    dk = torch.einsum("bhts,bthd->bshd", ds, fix(q_s)) * scale.to(acc)
+    return torch.cat([dq, dk, dv], dim=-1).reshape(B, T, threeC)
+
+
+def attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: dqkv ``[B, T, 3C]`` from
+    qkv and the output's gradient ``g`` ``[B, T, C]``.
+
+    K2's math and rounding points (``attention_pallas.py:206-248``): q and k
+    scaled by d^-1/4 in the input dtype; s and the softmax p in fp32; dv =
+    dtype(p)^T g; dp = g v^T; ds = p (dp - rowsum(dp p)) in fp32 and rounded
+    to the input dtype; dq = ds k_s d^-1/4 and dk = ds^T q_s d^-1/4, each
+    product summed in fp32; the three gradients rounded to the input dtype
+    once, in the ``[q k v]`` interleave.
+    """
+    return _bwd_terms(qkv, g, num_heads).to(qkv.dtype)
+
+
+def attention_bwd_exact(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The backward's function in fp64, fp64 ``[B, T, 3C]``: the gradient the
+    rounded versions approximate, with no rounding after the scaling of q and k."""
+    return _bwd_terms(qkv, g, num_heads, exact=True)
+
+
+def bwd_rounding_scale(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The plain backward on the absolute values of its terms, fp32 ``[B, T, 3C]``.
+
+    Each output of the backward is a sum of products of bf16-rounded terms
+    (p or ds with g, k_s or q_s), and each version rounds those terms and the
+    output once. Two versions whose fp32 inputs to a rounding differ in the
+    last bits may land one bf16 ulp apart, at most 2^-7 of the value; so
+    they may differ by 2^-7 of this sum through the terms and 2^-7 through
+    the output: 2^-6 of it, whatever cancellation does to the output.
+    """
+    return _bwd_terms(qkv, g, num_heads, magnitude=True)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "attention_fwd": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, ctypes.c_float, _P],
+    "attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                      ctypes.c_float, _P],
+}
+
+
+def _kernel(name: str):
+    """The C entry ``cdae_<name>`` of ``csrc/<name>.cu``, built and typed on first use."""
+    fn = getattr(_build.load(name), f"cdae_{name}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(qkv: torch.Tensor, num_heads: int) -> int:
@@ -108,6 +181,19 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
     return d
 
 
+def _check_grad(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> int:
+    """``_check`` for qkv, and g ``[B, T, C]`` laid out as the kernel reads it."""
+    d = _check(qkv, num_heads)
+    B, T, threeC = qkv.shape
+    if tuple(g.shape) != (B, T, threeC // 3) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(f"g must be {qkv.dtype} [B, T, C] = {(B, T, threeC // 3)} on "
+                         f"{qkv.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if g.stride(2) != 1 or g.stride(0) % 8 or g.stride(1) % 8 or g.data_ptr() % 16:
+        raise ValueError(f"g needs a contiguous, 16-byte aligned channel axis and row "
+                         f"strides that are multiples of 8 elements, got strides {g.stride()}")
+    return d
+
+
 def attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The kernel's wrapper: plain version on the CPU, the CUDA kernel on the card."""
     if qkv.device.type == "cpu":
@@ -118,7 +204,7 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, T, threeC = qkv.shape
     out = torch.empty((B, T, threeC // 3), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = _library().cdae_attention_fwd(
+    rc = _kernel("attention_fwd")(
         qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d,
         qkv.stride(0), qkv.stride(1), out.stride(0), out.stride(1),
         _bf16_scale(d), stream)
@@ -131,11 +217,57 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 attention_fwd.launches = 0
 
 
+def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The backward kernel's wrapper: plain version on the CPU, the CUDA kernel on the card.
+
+    Returns dqkv ``[B, T, 3C]`` in qkv's dtype. The kernel's two passes
+    share fp32 scratch for the row statistics (lse and D, ``[B, H, T]``
+    each), allocated here.
+    """
+    if qkv.device.type == "cpu":
+        return attention_bwd_plain(qkv, g, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    d = _check_grad(qkv, g, num_heads)
+    B, T, threeC = qkv.shape
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    stats = torch.empty((2, B, num_heads, T), dtype=torch.float32, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = _kernel("attention_bwd")(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        B, T, num_heads, d, qkv.stride(0), qkv.stride(1), g.stride(0), g.stride(1),
+        dqkv.stride(0), dqkv.stride(1), _bf16_scale(d), stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd launch failed: CUDA error {rc}")
+    attention_bwd.launches += 1
+    return dqkv
+
+
+attention_bwd.launches = 0
+
+
+class FusedAttention(torch.autograd.Function):
+    """softmax((q s)(k s)^T) v with s = d^-1/4: the forward kernel forward,
+    the backward kernel backward. Saves only qkv; the backward recomputes
+    the probabilities, as K2 does."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv)
+        return attention_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return attention_bwd(qkv, g.contiguous(), ctx.num_heads), None
+
+
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Counterpart of the JAX ``fused_qkv_attention`` (K1's entry)."""
-    return attention_fwd(qkv, num_heads)
+    """Counterpart of the JAX ``fused_qkv_attention`` (K1, and K2 as its VJP)."""
+    return FusedAttention.apply(qkv, num_heads)
 
 
 def fused_qkv_attention_t(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Counterpart of the JAX ``fused_qkv_attention_t`` (K3's entry): same kernel."""
-    return attention_fwd(qkv, num_heads)
+    """Counterpart of the JAX ``fused_qkv_attention_t`` (K3, and K4 as its VJP): same kernels."""
+    return FusedAttention.apply(qkv, num_heads)

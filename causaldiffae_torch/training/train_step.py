@@ -1,0 +1,178 @@
+"""The training step.
+
+Port of ``causaldiffae_tpu/training/train_step.py:54-212``: timestep
+sampling, the q_sample + UNet forward + variational loss, backward (through
+the attention backward kernel on the card), the global grad norm, a step
+skipped on a non-finite grad norm, AdamW, the EMA and the loss-aware
+sampler's update. Microbatching sums the gradients of the per-microbatch
+MEAN losses, and the encoder's BatchNorm running statistics thread through
+the microbatches in order (they update in place on each forward).
+
+The metrics come back as tensors on the device, so a step does not
+synchronise the host; the loop reads them at its log interval. (The
+loss-second-moment sampler, not the presets' default, reads t and the losses
+back every step for its host-side history.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..diffusion.process import GaussianDiffusion
+from .samplers import sample_timesteps, timestep_weights, update_sampler_state
+from .state import TrainState, anneal_lr_, ema_rates, kl_weight_for_step
+
+__all__ = ["make_train_step", "compute_losses", "global_norm", "step_seed"]
+
+DRAW_KEYS = ("t", "noise", "rep_noise", "keep")
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, in fp32."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The draws' generator seed for ``step`` of a run seeded ``seed``."""
+    return seed * 1_000_003 + step
+
+
+def _quartile_means(t: torch.Tensor, values: torch.Tensor,
+                    num_timesteps: int) -> Dict[str, torch.Tensor]:
+    """Per-quartile-of-t means of ``values`` and their counts."""
+    q = 4 * t // num_timesteps
+    out = {}
+    for i in range(4):
+        m = (q == i).float()
+        out[f"q{i}"] = (values * m).sum() / m.sum().clamp(min=1.0)
+        out[f"q{i}_count"] = m.sum()
+    return out
+
+
+def compute_losses(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
+                   images: torch.Tensor, cond: Dict[str, torch.Tensor], t: torch.Tensor,
+                   kl_weight: float, *, noise: Optional[torch.Tensor] = None,
+                   rep_noise: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """The loss terms of one (micro)batch, as the JAX ``loss_fn`` computes them.
+
+    Draws not given come from ``generator``: the diffusion noise first,
+    then, inside the model, the reparameterization noise and the keep-mask.
+    """
+    def forward(x_t, t_model):
+        kwargs = {}
+        if cfg.class_cond:
+            kwargs["y"] = cond["y"]
+        if cfg.context_cond:
+            kwargs["c"] = cond["c"]
+        if cfg.rep_cond:
+            kwargs["x_start"] = images
+        return model(x_t, t_model, rep_noise=rep_noise, keep=keep, generator=generator, **kwargs)
+
+    return diffusion.training_losses(forward, images, t, c=cond.get("c"), rep_cond=cfg.rep_cond,
+                                     causal_modeling=cfg.causal_modeling, kl_weight=kl_weight,
+                                     noise=noise, generator=generator)
+
+
+def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
+                    optimizer: torch.optim.Optimizer) -> Callable:
+    """Build ``train_step(state, batch, *, draws=None) -> metrics``.
+
+    ``batch`` holds 'image' [B, H, W, C] and, as the config needs them, 'y'
+    [B] and 'c' [B, n_vars], on the model's device. ``draws`` may hand in
+    every random draw for the whole batch: 't' [B], 'noise' (the image's
+    shape), 'rep_noise' [B, rep_dim] and 'keep' [B]; each microbatch takes
+    its slice. Otherwise they come from a generator seeded from
+    ``step_seed(cfg.seed, state.step)``. The step updates ``state`` in place
+    and returns the metrics as device tensors.
+    """
+    rates = [(r, float(r)) for r in ema_rates(cfg)]
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
+                   draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        model.train()
+        images = batch["image"]
+        B = images.shape[0]
+        device = images.device
+        cond = {k: v for k, v in batch.items() if k != "image"}
+        draws = dict(draws or {})
+        if set(draws) - set(DRAW_KEYS):
+            raise KeyError(f"unknown draws {sorted(set(draws) - set(DRAW_KEYS))}")
+        gen = torch.Generator(device=device).manual_seed(step_seed(cfg.seed, state.step))
+
+        num_t = diffusion.num_timesteps
+        if "t" in draws:
+            t = draws["t"]
+            weights = timestep_weights(state.sampler_state, num_t, t)
+        else:
+            t, weights = sample_timesteps(state.sampler_state, num_t, B, gen, device)
+        kl_weight = kl_weight_for_step(state.step, cfg.kl_anneal_steps)
+
+        micro = cfg.microbatch if 0 < cfg.microbatch < B else B
+        if B % micro:
+            raise ValueError(f"batch {B} is not a multiple of microbatch {micro}")
+        optimizer.zero_grad(set_to_none=True)
+        parts = []
+        for lo in range(0, B, micro):
+            sl = slice(lo, lo + micro)
+            terms = compute_losses(cfg, model, diffusion, images[sl],
+                                   {k: v[sl] for k, v in cond.items()}, t[sl], kl_weight,
+                                   generator=gen,
+                                   **{k: draws[k][sl] for k in DRAW_KEYS[1:] if k in draws})
+            (terms["loss"] * weights[sl]).mean().backward()
+            parts.append({k: v.detach() for k, v in terms.items()})
+        terms = {k: (torch.cat([p[k].reshape(-1) for p in parts]) if parts[0][k].ndim
+                     else torch.stack([p[k] for p in parts]).mean()) for k in parts[0]}
+
+        loss_vec = terms["loss"].expand(B)
+        state.sampler_state = update_sampler_state(state.sampler_state, t, loss_vec)
+
+        for p in params:  # as jax.grad, every parameter has a gradient (zeros if unused)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grad_norm = global_norm([p.grad for p in params])
+        nonfinite = (~torch.isfinite(grad_norm)).float()
+        optimizer.found_inf = nonfinite if cfg.skip_nonfinite else None
+        anneal_lr_(optimizer, cfg)
+        optimizer.step()  # with found_inf = 1 the fused step leaves params, moments, step
+
+        with torch.no_grad():
+            for rate_str, rate in rates:
+                ema = [state.ema[rate_str][n] for n, _ in named]
+                torch._foreach_mul_(ema, rate)
+                torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - rate)
+
+        metrics = {
+            "loss": (loss_vec * weights).mean(),
+            "grad_norm": grad_norm,
+            "param_norm": global_norm([p.detach() for p in params]),
+            "kl_weight": torch.tensor(kl_weight, dtype=torch.float32, device=device),
+        }
+        if "mse" in terms:
+            metrics["mse"] = (terms["mse"] * weights).mean()
+        if cfg.skip_nonfinite:
+            metrics["step_skipped"] = nonfinite
+        if "kld_rep" in terms:
+            metrics["kld_rep"] = terms["kld_rep"].mean()
+        if "vb" in terms:
+            metrics["vb"] = (terms["vb"] * weights).mean()
+        if state.sampler_state is not None:
+            counts = state.sampler_state["counts"]
+            size = state.sampler_state["history"].shape[1]
+            metrics["sampler_warmed"] = torch.tensor(float((counts == size).all()), device=device)
+            metrics["sampler_warmup_frac"] = torch.tensor(float((counts / size).mean()),
+                                                          device=device)
+        for key in ("loss", "mse"):
+            if key in terms:
+                vals = terms[key].expand(B) * weights
+                for name, v in _quartile_means(t, vals, num_t).items():
+                    metrics[f"{key}_{name}"] = v
+        state.step += 1
+        return metrics
+
+    return train_step

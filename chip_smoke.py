@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path, counterfactual serving on the full-width
-``morphomnist_causaldae`` preset, through the hand-written attention kernel,
-and fails loudly. Needs a CUDA device and the CUDA toolkit (nvcc); imports
-nothing of JAX or of the JAX package. Phases:
+Drives the port's two main paths on the full-width ``morphomnist_causaldae``
+preset -- counterfactual serving, and training through the train CLI's code
+path -- through the hand-written attention kernels, and fails loudly. Needs
+a CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX or of the
+JAX package. Phases:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32 off
    for matrix products and convolutions, so that the fp32 plain versions
    are full fp32;
-2. build every kernel from ``causaldiffae_torch/csrc`` with nvcc (sm_90a);
-3. each kernel against its plain PyTorch version at the main path's shapes
-   (and a tail and a d=128 case), with times of the kernel, the plain
-   version and the one-call library yardstick, beside the least time the
-   card could take;
+2. build every kernel from ``causaldiffae_torch/csrc`` with nvcc (sm_90a),
+   one nvcc per source, all started together;
+3. the forward kernel against its plain PyTorch version at the main paths'
+   shapes (batch 16 serving, batch 128 training; a tail and a d=128 case),
+   with times of the kernel, the plain version and the one-call library
+   yardstick, beside the least time the card could take;
+3b. the backward kernel against its plain version at the training shapes
+   (batch 128), a tail and a d=128 case: per element within 1e-4 + 1.6e-2 M
+   (M the plain backward on the absolute values of its terms), no farther
+   from an fp64 gradient than 1.5x the plain version, with its times, SDPA's
+   backward time (forward + backward minus forward) and its bound;
 4. one full-width ``denoise`` with the kernel, with the plain attention and
    with fp64 attention, on the same random weights: the kernel's eps may
    stand at most 1.5x as far from the fp64 one as the plain version's; the
@@ -21,7 +28,17 @@ nothing of JAX or of the JAX package. Phases:
    plain version too, with the softmax's sharpness printed;
 5. serving: 2 batches of 16 counterfactual requests through DDIM-250 and 1
    through DPM++-25, with every kernel's launch count reset before and read
-   after, latency per batch, images per second and peak memory.
+   after, latency per batch, images per second and peak memory;
+6. training: one step's gradients at batch 16 with the kernels, with their
+   plain versions (forward and backward) and with fp64 attention (the
+   kernels' no more than 1.5x as far from the fp64 ones, RMS over all
+   parameters); then 8 steps of the
+   train CLI's loop at the preset's batch of 128 on the synthetic pool, with
+   the launch counts reset before and read after (8 forward and 8 backward
+   launches per step), checking finite losses and grad norms, moved params
+   (all but those whose gradient is exactly 0),
+   an EMA that moved toward them and changed BatchNorm statistics; steady
+   step time, samples per second and peak memory.
 
 Prints the card line and one ``{"kernels": [...]}`` JSON line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -33,10 +50,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -48,16 +67,30 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-ATTN_SHAPES = [  # (B, T, heads, d): the main path's two shapes first
+ATTN_SHAPES = [  # (B, T, heads, d): the serving path's two shapes first
     (16, 784, 4, 32),   # the seven ds=1 blocks
     (16, 49, 4, 64),    # the middle block
+    (128, 784, 4, 32),  # the same blocks at the training batch
+    (128, 49, 4, 64),
     (3, 100, 2, 64),    # query and key tails
     (2, 77, 2, 128),    # the other presets' head width
 ]
+BWD_SHAPES = [          # the training path's two shapes first
+    (128, 784, 4, 32),
+    (128, 49, 4, 64),
+    (3, 100, 2, 64),
+    (2, 77, 2, 128),
+]
+FP64_BATCH = 16         # the fp64 gradient check runs on the first 16 batch elements
+TRAIN_STEPS = 8
+GRAD_BATCH = 16         # the plain and fp64 routes hold [B, 4, 784, 784] per block
 # kernel vs plain: both round p and the output to bf16, at different points,
 # so they may differ by two bf16 ulps (2^-6) of sum_j p_j |v_j|, the
 # magnitude of the terms each output sums (ops.attention.rounding_scale);
-# the absolute floor covers the fp32 sums' order
+# the absolute floor covers the fp32 sums' order. The backward rounds p, ds
+# and each gradient once: one ulp (<= 2^-7) apart at a term and at the
+# output is 2^-6 of M, the plain backward on the absolute values of its
+# terms (ops.attention.bwd_rounding_scale).
 ATTN_ATOL, ATTN_RTOL = 1e-4, 1.6e-2
 SEED = 0
 STD = 0.02            # every weight ~ N(0, STD^2), norm scales ~ 1 ...
@@ -204,6 +237,108 @@ def check_attention(ops, B, T, H, d, gen):
     return rec
 
 
+def attention_bwd_bound(B, T, H, d):
+    """Least time (ms) for the attention backward and what sets it.
+
+    The larger of three times: bytes, qkv and g read once and dqkv written
+    once (bf16), at the HBM rate; the five T x T products of the gradient
+    (s recomputed once, dv, dp, dq, dk: 10*B*H*T^2*d FLOPs) at the bf16
+    tensor-core peak; five fp32 operations per score (p's subtraction,
+    dp - D, the product with p, and the row sum's product and add) at the
+    fp32 peak. The kernel's further recomputation is not counted.
+    """
+    C = H * d
+    bytes_s = 2 * (B * T * 3 * C + B * T * C + B * T * 3 * C) / PEAK_BYTES
+    mma_s = 10 * B * H * T * T * d / PEAK_BF16_FLOPS
+    fp32_s = 5 * B * H * T * T / PEAK_FP32_FLOPS
+    ops_s = max(mma_s, fp32_s)
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def check_backward(ops, B, T, H, d, gen):
+    """Backward kernel vs plain version vs fp64 on one shape; the measured record."""
+    import torch.nn.functional as F
+
+    qkv = (2 ** 0.5 * torch.randn(B, T, 3 * H * d, generator=gen, device="cuda")
+           ).to(torch.bfloat16)   # scores of std ~2: a softmax far from uniform
+    g = torch.randn(B, T, H * d, generator=gen, device="cuda").to(torch.bfloat16)
+    got = ops.attention_bwd(qkv, g, H)
+    torch.cuda.synchronize()
+    want = ops.attention_bwd_plain(qkv, g, H)
+    scale = ops.bwd_rounding_scale(qkv, g, H)
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()) or not bool((err <= ATTN_ATOL + ATTN_RTOL * scale).all()):
+        raise AssertionError(f"attention backward kernel disagrees on {(B, T, H, d)}: max abs err "
+                             f"{float(err.max())}, max err / M {float((err / scale).max())}")
+    n = min(B, FP64_BATCH)
+    exact = ops.attention_bwd_exact(qkv[:n], g[:n], H)
+    d_kernel, d_plain = rms(got[:n].double() - exact), rms(want[:n].double() - exact)
+    if d_kernel > 1.5 * d_plain:
+        raise AssertionError(f"attention backward kernel on {(B, T, H, d)} stands {d_kernel:.3e} "
+                             f"from fp64 (RMS), the plain version {d_plain:.3e}")
+    del exact
+    # library yardstick: SDPA's backward on the same scaled q, k, v and g
+    q, k, v = qkv.reshape(B, T, H, 3 * d).split(d, dim=-1)
+    s = ops.kernel_scale(d, torch.bfloat16).cuda()
+    q, k, v = ((a * f).transpose(1, 2).contiguous().requires_grad_(True)
+               for a, f in ((q, s), (k, s), (v, 1)))
+    g_h = g.reshape(B, T, H, d).transpose(1, 2).contiguous()
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    sdpa_both = lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), g_h)
+    bound_ms, bound_by = attention_bwd_bound(B, T, H, d)
+    rec = {
+        "shape": [B, T, H, d],
+        "max_abs_err": float(err.max()),
+        "ms": time_ms(lambda: ops.attention_bwd(qkv, g, H)),
+        "plain_ms": time_ms(lambda: ops.attention_bwd_plain(qkv, g, H), iters=3),
+        "library_ms": max(time_ms(sdpa_both) - time_ms(sdpa_fwd), 0.0),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    print(f"attention backward {rec['shape']}: max_abs_err {rec['max_abs_err']:.3e} (bound "
+          f"{ATTN_ATOL} + {ATTN_RTOL}*M, max err / M {float((err / scale).max()):.3e}, "
+          f"gradient rms {rms(want):.3e}); RMS from fp64 on {n} batch elements: kernel "
+          f"{d_kernel:.3e}, plain {d_plain:.3e}; kernel_ms {rec['ms']:.4f}, plain_ms "
+          f"{rec['plain_ms']:.4f} (at B={B}), library_ms (SDPA fwd+bwd minus fwd) "
+          f"{rec['library_ms']:.4f}, bound_us {1e3 * bound_ms:.2f} ({bound_by}), "
+          f"exp_unit_us {1e6 * B * H * T * T / PEAK_EXP:.2f}", flush=True)
+    return rec
+
+
+class PlainAttention(torch.autograd.Function):
+    """The kernels' plain versions as one differentiable attention: the plain
+    forward, and K2's gradient in fp32 einsums (``attention_bwd_plain``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        from causaldiffae_torch.ops import attention as ops
+
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        return ops.attention_plain(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        from causaldiffae_torch.ops import attention as ops
+
+        (qkv,) = ctx.saved_tensors
+        return ops.attention_bwd_plain(qkv, g, ctx.heads), None
+
+
+def training_gradients(cfg, model, diffusion, batch, draws):
+    """One step's loss gradients, every parameter, flattened to fp64."""
+    from causaldiffae_torch.training.train_step import compute_losses
+
+    cond = {k: v for k, v in batch.items() if k != "image"}
+    terms = compute_losses(cfg, model, diffusion, batch["image"], cond, draws["t"], 0.5,
+                           noise=draws["noise"], rep_noise=draws["rep_noise"],
+                           keep=draws["keep"])
+    params = [p for p in model.parameters()]
+    grads = torch.autograd.grad(terms["loss"].mean(), params, allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if gr is None else gr).double().reshape(-1)
+                      for p, gr in zip(params, grads)])
+
+
 @contextlib.contextmanager
 def route_attention(fn):
     """Send the UNet's attention blocks through ``fn(qkv, heads)`` meanwhile."""
@@ -243,6 +378,92 @@ def rms(a):
     return float(a.float().pow(2).mean().sqrt())
 
 
+def train_phase(cfg, ops, gen):
+    """Phase 6: the gradient check at batch 16, then the train CLI's loop at
+    the preset's batch; returns the kernels' launch counts of the loop."""
+    from causaldiffae_torch.config import create_diffusion, create_model
+    from causaldiffae_torch.data import synthetic_dataset, synthetic_iterator
+    from causaldiffae_torch.serve import build_model
+    from causaldiffae_torch.training import run_training
+    from causaldiffae_torch.training.loop import to_device
+
+    diffusion = create_diffusion(cfg)
+    model = create_model(cfg, device="cuda").train()
+    fill_weights_(model, SEED + 2)
+    B = GRAD_BATCH
+    batch = to_device(synthetic_dataset(cfg.dataset, B, seed=SEED), "cuda")
+    draws = {"t": torch.randint(0, diffusion.num_timesteps, (B,), generator=gen, device="cuda"),
+             "noise": torch.randn(B, 28, 28, 1, generator=gen, device="cuda"),
+             "rep_noise": torch.randn(B, cfg.rep_dim, generator=gen, device="cuda"),
+             "keep": torch.tensor([1.0, 0.0] * (B // 2), device="cuda")}
+    n_fwd, n_bwd = ops.attention_fwd.launches, ops.attention_bwd.launches
+    g_kernel = training_gradients(cfg, model, diffusion, batch, draws)
+    torch.cuda.synchronize()
+    launched = (ops.attention_fwd.launches - n_fwd, ops.attention_bwd.launches - n_bwd)
+    if launched != (8, 8):
+        raise AssertionError(f"one full-width gradient launched {launched} (forward, backward) "
+                             "attention kernels, expected (8, 8)")
+    with route_attention(PlainAttention.apply):
+        g_plain = training_gradients(cfg, model, diffusion, batch, draws)
+    with route_attention(lambda qkv, heads: exact_attention(ops, qkv, heads)[0].to(qkv.dtype)):
+        g_exact = training_gradients(cfg, model, diffusion, batch, draws)
+    d_k, d_p = rms(g_kernel - g_exact), rms(g_plain - g_exact)
+    print(f"full-width gradient at B={B}, {g_kernel.numel()} parameters: rms {rms(g_exact):.4e}; "
+          f"rms distance from the gradient with fp64 attention: kernels {d_k:.4e}, plain "
+          f"{d_p:.4e} (ratio {d_k / d_p:.3f}, limit 1.5); kernels vs plain {rms(g_kernel - g_plain):.4e}")
+    if not bool(torch.isfinite(g_kernel).all()) or d_k > 1.5 * d_p:
+        raise AssertionError("the kernels' full-width gradient is not finite or stands farther "
+                             "from the fp64-attention gradient than the plain version's allows")
+    del model, g_kernel, g_plain, g_exact
+    torch.cuda.empty_cache()
+
+    # the train CLI's code path (train.main builds the same model and loop)
+    model = build_model(cfg, "", SEED, "cuda")
+    fill_weights_(model, SEED + 3)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    data = synthetic_iterator(cfg.dataset, cfg.batch_size, seed=SEED, image_size=cfg.image_size)
+    ops.attention_fwd.launches = ops.attention_bwd.launches = 0  # the main path's count
+    torch.cuda.reset_peak_memory_stats()
+    state, records = run_training(cfg, model, diffusion, data, total_steps=TRAIN_STEPS,
+                                  log_interval=1, device="cuda")
+    launches = {"attention_fwd": ops.attention_fwd.launches,
+                "attention_bwd": ops.attention_bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in records:
+        if not all(math.isfinite(r[k]) for k in ("loss", "mse", "kld_rep", "grad_norm")) \
+                or r["step_skipped"] != 0.0:
+            raise AssertionError(f"train step {r['step']}: non-finite loss or grad norm, or skipped")
+    if launches != {k: 8 * TRAIN_STEPS for k in launches}:
+        raise AssertionError(f"{launches} attention launches in {TRAIN_STEPS} steps, expected "
+                             f"8 of each per step")
+    params = dict(model.named_parameters())
+    # a parameter whose gradient is exactly 0 stays (the root variable's SCM
+    # input is masked to zero, so its MLP's first weight never gets one)
+    zero_grad = [n for n, p in params.items() if not bool(p.grad.any())]
+    still = [n for n, p in params.items()
+             if torch.equal(p.detach(), before[n]) and n not in zero_grad]
+    if still or len(zero_grad) > 2:
+        raise AssertionError(f"parameters that did not move: {still}; with a zero gradient: "
+                             f"{zero_grad}")
+    ema = state.ema[sorted(state.ema)[0]]
+    flat = lambda d: torch.cat([d[n].detach().double().reshape(-1) for n in params])
+    p_now, p_before, e_now = flat(params), flat(before), flat(ema)
+    if not (rms(e_now - p_now) < rms(p_before - p_now) and rms(e_now - p_before) > 0):
+        raise AssertionError("the EMA did not move toward the params")
+    if all(torch.equal(b, stats[n]) for n, b in model.named_buffers() if n in stats):
+        raise AssertionError("the BatchNorm running statistics did not change")
+    steady = records[2:]
+    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
+    print(f"train loop, batch {cfg.batch_size}, {TRAIN_STEPS} steps (one log line, and so one "
+          f"sync, per step): loss {[round(r['loss'], 4) for r in records]}; steady step "
+          f"{1e3 * step_s:.2f} ms over steps 3-{TRAIN_STEPS} ({cfg.batch_size / step_s:.1f} "
+          f"samples/s), first step {1e3 * records[0]['step_time_s']:.1f} ms; launches {launches}; "
+          f"peak memory {peak_gb:.3f} GB; zero-gradient parameters {zero_grad}; EMA rms from params {rms(e_now - p_now):.3e} < "
+          f"initial {rms(p_before - p_now):.3e}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card")
@@ -264,13 +485,20 @@ def main():
     print("TF32 off for matmul and cuDNN: the fp32 plain versions run in full fp32")
 
     phase("2. build")
-    seconds, log = _build.build("attention_fwd")
-    print(f"nvcc csrc/attention_fwd.cu: {seconds:.2f} s")
-    print(log.strip())
+    sources = ("attention_fwd", "attention_bwd")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        builds = list(pool.map(_build.build, sources))
+    for name, (seconds, log) in zip(sources, builds):
+        print(f"nvcc csrc/{name}.cu: {seconds:.2f} s")
+        print(log.strip())
 
-    phase("3. kernels against their plain versions")
+    phase("3. forward kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     attn_recs = [check_attention(ops, *shape, gen) for shape in ATTN_SHAPES]
+
+    phase("3b. backward kernel against its plain version")
+    bwd_recs = [check_backward(ops, *shape, gen) for shape in BWD_SHAPES]
+    torch.cuda.empty_cache()
 
     phase("4. full-width denoise: kernel vs plain attention")
     cfg = get_config("morphomnist_causaldae")
@@ -364,23 +592,32 @@ def main():
         raise AssertionError(f"attention launches {launches['attention_fwd']} != "
                              f"8 x {unet_calls} UNet calls")
 
-    main_rec = attn_recs[0]
-    kernels = [{
-        "name": "attention_fwd",
-        "route": "cuda",
-        "source": "causaldiffae_torch/csrc/attention_fwd.cu",
-        "replaces": "causaldiffae_tpu/ops/attention_pallas.py:116 (_attn_kernel) and "
-                    ":280 (_attn_kernel_t)",
-        "launches": launches["attention_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in attn_recs),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"],
-        "shape": main_rec["shape"],
-        "other_shapes": attn_recs[1:],
-    }]
+    phase("6. training: morphomnist_causaldae at full width")
+    del model
+    torch.cuda.empty_cache()
+    train_launches = train_phase(cfg, ops, gen)
+
+    def record(name, replaces, recs, launches_by_path):
+        main_rec = recs[0]
+        return {
+            "name": name, "route": "cuda", "source": f"causaldiffae_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **{k: main_rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "shape")},
+            "other_shapes": recs[1:],
+        }
+
+    kernels = [
+        record("attention_fwd", "causaldiffae_tpu/ops/attention_pallas.py:116 (_attn_kernel) "
+               "and :280 (_attn_kernel_t)", attn_recs,
+               {"serving": launches["attention_fwd"], "training": train_launches["attention_fwd"]}),
+        record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
+               "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
+               {"training": train_launches["attention_bwd"]}),
+    ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -6,11 +6,14 @@ only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Each kernel is held against its plain PyTorch version on the same inputs.
-bf16 bound: |kernel - plain| <= 1e-4 + 1.6e-2 * sum_j p_j |v_j| -- the
-kernel rounds the unnormalised probabilities where the plain version rounds
-the normalised ones, and both round the output, so the two may differ by
-two bf16 ulps (2^-6) of the magnitude of the terms each output sums
-(``ops.rounding_scale``).
+bf16 bound, forward: |kernel - plain| <= 1e-4 + 1.6e-2 * sum_j p_j |v_j| --
+the kernel rounds the unnormalised probabilities where the plain version
+rounds the normalised ones, and both round the output, so the two may differ
+by two bf16 ulps (2^-6) of the magnitude of the terms each output sums
+(``ops.rounding_scale``). Backward: the same 1e-4 + 1.6e-2 * M, with M the
+plain backward on the absolute values of its terms
+(``ops.bwd_rounding_scale``): each version rounds p, ds and the output to
+bf16 once, and one ulp apart at a term and at the output is 2^-6 of M.
 """
 
 import pytest
@@ -28,9 +31,12 @@ def _assert_within_rounding(got, qkv, h):
     assert bool((err <= limit).all()), f"max abs err {float(err.max())}"
 
 
-def _qkv(b, T, h, d, device, seed=0):
+def _qkv(b, T, h, d, device, seed=0, std=1.0):
     g = torch.Generator(device=device).manual_seed(seed)
-    return torch.randn(b, T, 3 * h * d, generator=g, device=device).to(torch.bfloat16)
+    return (std * torch.randn(b, T, 3 * h * d, generator=g, device=device)).to(torch.bfloat16)
+
+
+BWD_SHAPES = [(16, 784, 4, 32), (16, 49, 4, 64), (3, 100, 2, 64), (2, 77, 2, 128)]
 
 
 @pytest.mark.cuda
@@ -68,3 +74,57 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         ops.attention_fwd(qkv.float(), 2)
     with pytest.raises(ValueError):
         ops.attention_fwd(_qkv(2, 49, 2, 16, cuda_device), 2)
+
+
+def _bwd_inputs(b, T, h, d, device):
+    """qkv whose scores have std ~2 (q, k of std 2^(1/2) d^(1/4) after the
+    d^-1/4 scaling: a softmax far from uniform), and a unit-variance g."""
+    qkv = _qkv(b, T, h, d, device, seed=3, std=2 ** 0.5)
+    gen = torch.Generator(device=device).manual_seed(4)
+    g = torch.randn(b, T, h * d, generator=gen, device=device).to(torch.bfloat16)
+    return qkv, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,h,d", BWD_SHAPES)
+def test_attention_bwd_kernel_matches_plain(cuda_device, b, T, h, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, g = _bwd_inputs(b, T, h, d, cuda_device)
+    n = ops.attention_bwd.launches
+    got = ops.attention_bwd(qkv, g, h)
+    torch.cuda.synchronize()
+    assert ops.attention_bwd.launches == n + 1
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - ops.attention_bwd_plain(qkv, g, h).float()).abs()
+    limit = ATOL + RTOL * ops.bwd_rounding_scale(qkv, g, h)
+    assert bool((err <= limit).all()), f"max abs err {float(err.max())}"
+    torch.testing.assert_close(ops.attention_bwd(qkv, g, h), got, atol=0, rtol=0)  # deterministic
+
+
+@pytest.mark.cuda
+def test_fused_attention_gradient_matches_plain_route(cuda_device):
+    """autograd through the Function (both kernels) against autograd through
+    the plain forward and the plain backward on the same inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, T, h, d = 4, 196, 2, 32
+    qkv, g = _bwd_inputs(b, T, h, d, cuda_device)
+    leaf = qkv.clone().requires_grad_(True)
+    nf, nb = ops.attention_fwd.launches, ops.attention_bwd.launches
+    out = ops.fused_qkv_attention_t(leaf, h)
+    (grad,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    assert (ops.attention_fwd.launches - nf, ops.attention_bwd.launches - nb) == (1, 1)
+    err = (grad.float() - ops.attention_bwd_plain(qkv, g, h).float()).abs()
+    assert bool((err <= ATOL + RTOL * ops.bwd_rounding_scale(qkv, g, h)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_attention_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    qkv, g = _bwd_inputs(2, 49, 2, 32, cuda_device)
+    with pytest.raises(ValueError):      # g of the wrong width
+        ops.attention_bwd(qkv, g[..., :32], 2)
+    with pytest.raises(ValueError):      # g with a strided channel axis
+        ops.attention_bwd(qkv, g.transpose(1, 2).contiguous().transpose(1, 2), 2)
+    with pytest.raises(TypeError):
+        ops.attention_bwd(qkv.float(), g.float(), 2)

@@ -90,7 +90,9 @@ def test_port_sources_import_no_jax():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, causaldiffae_torch.serve, causaldiffae_torch.evals, "
-            "causaldiffae_torch.utils.weights; "
+            "causaldiffae_torch.utils.weights, causaldiffae_torch.train, "
+            "causaldiffae_torch.training, causaldiffae_torch.data, "
+            "causaldiffae_torch.profile_training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
