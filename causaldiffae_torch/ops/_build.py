@@ -4,11 +4,14 @@ A source compiles into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <src>.cu
+         -Xcompiler -fPIC -Xptxas -v -lcuda -o <lib>.so <src>.cu
+
+(``-lcuda`` for the TMA tensor-map encoder, ``cuTensorMapEncodeTiled``.)
 
 The library goes into ``build/causaldiffae_torch/`` beside the package (a
-directory git ignores), named after a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+directory git ignores), named after a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is. Nothing
 builds at import time: the first launch of a kernel builds it, or a caller
 builds it ahead with :func:`build`.
 """
@@ -27,7 +30,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "causaldiffae_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,7 +47,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -9,15 +9,19 @@ Each pair computes one function in two orientations, so one kernel serves
 both. Both public entry names are kept so the routing in
 ``models/attention.py`` stays testable; both go through one
 ``torch.autograd.Function`` whose forward launches the forward kernel and
-whose backward launches the backward kernel, saving only ``qkv`` (the one
-residual K2 keeps, ``attention_pallas.py:409``). The TPU-only choices (query
-chunking, deferred normalisation, the full-lane orientation) are not part of
-the math and are not carried over.
+whose backward launches the backward kernel. Where K2 keeps only ``qkv``
+(``attention_pallas.py:409``) and recomputes the row statistics, the
+Function also saves the forward's output and row logsumexp (lse): the
+backward then takes p = exp(s - lse) and D = rowsum(g o) without a pass of
+its own over the keys. The function is the same. The TPU-only choices
+(query chunking, deferred normalisation, the full-lane orientation) are not
+part of the math and are not carried over.
 
 ``qkv`` is ``[B, T, 3C]`` with the head-major ``[q k v]`` interleave and the
 output is ``[B, T, C]``, both in the input dtype. On a CPU tensor each wrapper
 runs its plain version; on a CUDA tensor it launches its kernel or raises.
-``attention_fwd.launches`` and ``attention_bwd.launches`` count launches.
+``attention_fwd.launches`` and ``attention_bwd.launches`` count launches,
+``attention_fwd.lse_launches`` those forward launches that wrote lse.
 """
 
 from __future__ import annotations
@@ -48,13 +52,14 @@ def _bf16_scale(d: int) -> float:
     return float(kernel_scale(d, torch.bfloat16))
 
 
-def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def attention_plain(qkv: torch.Tensor, num_heads: int, with_lse: bool = False):
     """Plain PyTorch version of the kernel's function.
 
     q and k are scaled by d^-1/4 in the input dtype; the scores are exact
     products of those values summed in fp32; softmax in fp32; the
     probabilities are rounded to the input dtype and multiplied with v in
-    fp32; the result is rounded to the input dtype.
+    fp32; the result is rounded to the input dtype. With ``with_lse`` it
+    also returns the fp32 logsumexp of each row of scores, ``[B, H, T]``.
     """
     B, T, threeC = qkv.shape
     C = threeC // 3
@@ -64,8 +69,8 @@ def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     scale = kernel_scale(d, dt)
     s = torch.einsum("bthd,bshd->bhts", (q * scale).float(), (k * scale).float())
     p = torch.softmax(s, dim=-1).to(dt)
-    out = torch.einsum("bhts,bshd->bthd", p.float(), v.float())
-    return out.to(dt).reshape(B, T, C)
+    out = torch.einsum("bhts,bshd->bthd", p.float(), v.float()).to(dt).reshape(B, T, C)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def rounding_scale(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -145,8 +150,8 @@ def bwd_rounding_scale(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> to
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "attention_fwd": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, ctypes.c_float, _P],
-    "attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+    "attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, ctypes.c_float, _P],
+    "attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
                       ctypes.c_float, _P],
 }
 
@@ -181,62 +186,104 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
     return d
 
 
-def _check_grad(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> int:
-    """``_check`` for qkv, and g ``[B, T, C]`` laid out as the kernel reads it."""
+def _check_rows(name: str, t: torch.Tensor, shape) -> None:
+    """A bf16 ``[B, T, n]`` tensor with a contiguous channel axis, 16-byte
+    aligned, and row strides that are multiples of 8 elements."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16:
+        raise ValueError(f"{name} must be bfloat16 {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned channel axis and row "
+                         f"strides that are multiples of 8 elements, got strides {t.stride()}")
+
+
+def _padded_rows(T: int) -> int:
+    """Rows of the row statistics: T rounded up to the kernels' 64-row tile."""
+    return -(-T // 64) * 64
+
+
+def _check_grad(qkv, g, num_heads, out, lse) -> int:
+    """``_check`` for qkv; g and the forward's output ``[B, T, C]`` as the
+    kernel reads them; lse as the forward kernel wrote it."""
     d = _check(qkv, num_heads)
     B, T, threeC = qkv.shape
-    if tuple(g.shape) != (B, T, threeC // 3) or g.dtype != qkv.dtype or g.device != qkv.device:
-        raise ValueError(f"g must be {qkv.dtype} [B, T, C] = {(B, T, threeC // 3)} on "
-                         f"{qkv.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
-    if g.stride(2) != 1 or g.stride(0) % 8 or g.stride(1) % 8 or g.data_ptr() % 16:
-        raise ValueError(f"g needs a contiguous, 16-byte aligned channel axis and row "
-                         f"strides that are multiples of 8 elements, got strides {g.stride()}")
+    for name, t in (("g", g), ("out", out), ("lse", lse)):
+        if t is None:
+            raise ValueError(f"the backward kernel needs {name}: pass the forward kernel's "
+                             "output and lse")
+        if t.device != qkv.device:
+            raise ValueError(f"{name} is on {t.device}, qkv on {qkv.device}")
+    _check_rows("g", g, (B, T, threeC // 3))
+    _check_rows("out", out, (B, T, threeC // 3))
+    Tp = _padded_rows(T)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, num_heads, T)
+            or lse.stride() != (num_heads * Tp, Tp, 1)):
+        raise ValueError(f"lse must be the forward kernel's fp32 [B, H, T] view of "
+                         f"[B, H, {Tp}], got {lse.dtype} {tuple(lse.shape)} strides "
+                         f"{lse.stride()}")
     return d
 
 
-def attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The kernel's wrapper: plain version on the CPU, the CUDA kernel on the card."""
+def attention_fwd(qkv: torch.Tensor, num_heads: int, with_lse: bool = False):
+    """The kernel's wrapper: plain version on the CPU, the CUDA kernel on the card.
+
+    Returns the output ``[B, T, C]``, and with ``with_lse`` also the fp32
+    logsumexp of each row of scores, ``[B, H, T]``: on the card a view of
+    ``[B, H, Tp]`` (T rounded up to 64), the layout the backward kernel
+    reads. Without it the kernel writes no row statistics.
+    """
     if qkv.device.type == "cpu":
-        return attention_plain(qkv, num_heads)
+        return attention_plain(qkv, num_heads, with_lse)
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qkv.device}")
     d = _check(qkv, num_heads)
     B, T, threeC = qkv.shape
     out = torch.empty((B, T, threeC // 3), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = _kernel("attention_fwd")(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, d,
-        qkv.stride(0), qkv.stride(1), out.stride(0), out.stride(1),
-        _bf16_scale(d), stream)
+    lse = None
+    if with_lse:
+        lse = torch.empty((B, num_heads, _padded_rows(T)), dtype=torch.float32,
+                          device=qkv.device)[..., :T]
+    with torch.cuda.device(qkv.device):   # the C side binds the current device's context
+        rc = _kernel("attention_fwd")(
+            qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            B, T, num_heads, d, qkv.stride(0), qkv.stride(1), out.stride(0), out.stride(1),
+            _bf16_scale(d), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed: CUDA error {rc}")
     attention_fwd.launches += 1
+    if with_lse:
+        attention_fwd.lse_launches += 1
+        return out, lse
     return out
 
 
 attention_fwd.launches = 0
+attention_fwd.lse_launches = 0  # launches that wrote lse (the training path's)
 
 
-def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                  out: torch.Tensor = None, lse: torch.Tensor = None) -> torch.Tensor:
     """The backward kernel's wrapper: plain version on the CPU, the CUDA kernel on the card.
 
-    Returns dqkv ``[B, T, 3C]`` in qkv's dtype. The kernel's two passes
-    share fp32 scratch for the row statistics (lse and D, ``[B, H, T]``
-    each), allocated here.
+    Returns dqkv ``[B, T, 3C]`` in qkv's dtype. ``out`` and ``lse`` are the
+    forward kernel's output and row logsumexp (``attention_fwd(..,
+    with_lse=True)``); the kernel needs both, the plain version neither. It
+    writes D = rowsum(g o) to fp32 scratch ``[B, H, Tp]``, allocated here.
     """
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, g, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qkv.device}")
-    d = _check_grad(qkv, g, num_heads)
+    d = _check_grad(qkv, g, num_heads, out, lse)
     B, T, threeC = qkv.shape
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-    stats = torch.empty((2, B, num_heads, T), dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = _kernel("attention_bwd")(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        B, T, num_heads, d, qkv.stride(0), qkv.stride(1), g.stride(0), g.stride(1),
-        dqkv.stride(0), dqkv.stride(1), _bf16_scale(d), stream)
+    dsum = torch.empty((B, num_heads, _padded_rows(T)), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        rc = _kernel("attention_bwd")(
+            qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+            dsum.data_ptr(), B, T, num_heads, d, qkv.stride(0), qkv.stride(1), g.stride(0),
+            g.stride(1), out.stride(0), out.stride(1), dqkv.stride(0), dqkv.stride(1),
+            _bf16_scale(d), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd launch failed: CUDA error {rc}")
     attention_bwd.launches += 1
@@ -248,19 +295,24 @@ attention_bwd.launches = 0
 
 class FusedAttention(torch.autograd.Function):
     """softmax((q s)(k s)^T) v with s = d^-1/4: the forward kernel forward,
-    the backward kernel backward. Saves only qkv; the backward recomputes
-    the probabilities, as K2 does."""
+    the backward kernel backward. When qkv needs a gradient the forward also
+    writes the row logsumexp and saves qkv, the output and lse; the backward
+    takes the probabilities from lse and D = rowsum(g o) from the output, so
+    it recomputes each score once."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         ctx.num_heads = num_heads
-        ctx.save_for_backward(qkv)
-        return attention_fwd(qkv, num_heads)
+        if not ctx.needs_input_grad[0]:
+            return attention_fwd(qkv, num_heads)
+        out, lse = attention_fwd(qkv, num_heads, True)
+        ctx.save_for_backward(qkv, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (qkv,) = ctx.saved_tensors
-        return attention_bwd(qkv, g.contiguous(), ctx.num_heads), None
+        qkv, out, lse = ctx.saved_tensors
+        return attention_bwd(qkv, g.contiguous(), ctx.num_heads, out, lse), None
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -14,13 +14,17 @@ JAX package. Phases:
    one nvcc per source, all started together;
 3. the forward kernel against its plain PyTorch version at the main paths'
    shapes (batch 16 serving, batch 128 training; a tail and a d=128 case),
-   with times of the kernel, the plain version and the one-call library
-   yardstick, beside the least time the card could take;
-3b. the backward kernel against its plain version at the training shapes
+   its row logsumexp (lse, written only when asked for) against the plain
+   lse, with times of the kernel (with and without lse), the plain version
+   and the one-call library yardstick, beside the least time the card could
+   take;
+3b. the backward kernel, fed the forward kernel's output and lse as the
+   training path feeds it, against its plain version at the training shapes
    (batch 128), a tail and a d=128 case: per element within 1e-4 + 1.6e-2 M
    (M the plain backward on the absolute values of its terms), no farther
-   from an fp64 gradient than 1.5x the plain version, with its times, SDPA's
-   backward time (forward + backward minus forward) and its bound;
+   from an fp64 gradient than 1.5x the plain version, two launches bit-equal,
+   with its times, SDPA's backward time (forward + backward minus forward)
+   and its bound;
 4. one full-width ``denoise`` with the kernel, with the plain attention and
    with fp64 attention, on the same random weights: the kernel's eps may
    stand at most 1.5x as far from the fp64 one as the plain version's; the
@@ -28,17 +32,18 @@ JAX package. Phases:
    plain version too, with the softmax's sharpness printed;
 5. serving: 2 batches of 16 counterfactual requests through DDIM-250 and 1
    through DPM++-25, with every kernel's launch count reset before and read
-   after, latency per batch, images per second and peak memory;
+   after (no forward launch writes lse), latency per batch, images per
+   second and peak memory;
 6. training: one step's gradients at batch 16 with the kernels, with their
    plain versions (forward and backward) and with fp64 attention (the
    kernels' no more than 1.5x as far from the fp64 ones, RMS over all
-   parameters); then 8 steps of the
-   train CLI's loop at the preset's batch of 128 on the synthetic pool, with
-   the launch counts reset before and read after (8 forward and 8 backward
-   launches per step), checking finite losses and grad norms, moved params
-   (all but those whose gradient is exactly 0),
-   an EMA that moved toward them and changed BatchNorm statistics; steady
-   step time, samples per second and peak memory.
+   parameters); then 8 steps of the train CLI's loop at the preset's batch
+   of 128 on the synthetic pool, with the launch counts reset before and
+   read after (8 forward launches, each writing lse, and 8 backward launches
+   per step), checking finite losses and grad norms, moved params (all but
+   those whose gradient is exactly 0), an EMA that moved toward them and
+   changed BatchNorm statistics; steady step time, samples per second and
+   peak memory.
 
 Prints the card line and one ``{"kernels": [...]}`` JSON line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -81,6 +86,7 @@ BWD_SHAPES = [          # the training path's two shapes first
     (3, 100, 2, 64),
     (2, 77, 2, 128),
 ]
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 logsumexp: exp2 and sums in another order
 FP64_BATCH = 16         # the fp64 gradient check runs on the first 16 batch elements
 TRAIN_STEPS = 8
 GRAD_BATCH = 16         # the plain and fp64 routes hold [B, 4, 784, 784] per block
@@ -210,7 +216,17 @@ def check_attention(ops, B, T, H, d, gen):
 
     qkv = torch.randn(B, T, 3 * H * d, generator=gen, device="cuda").to(torch.bfloat16)
     max_abs_err, max_rel, want_rms = check_against_plain(ops, qkv, H, (B, T, H, d))
-    want = ops.attention_plain(qkv, H)
+    want, want_lse = ops.attention_plain(qkv, H, True)
+    n_lse = ops.attention_fwd.lse_launches
+    out_nolse = ops.attention_fwd(qkv, H)
+    if ops.attention_fwd.lse_launches != n_lse:
+        raise AssertionError("a forward launch without lse counted as writing lse")
+    out, lse = ops.attention_fwd(qkv, H, True)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_nolse):
+        raise AssertionError(f"the forward's output on {(B, T, H, d)} changes when it writes lse")
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    lse_err = float((lse - want_lse).abs().max())
     # library yardstick: SDPA on the same q, k, v, after the same scaling
     q, k, v = qkv.reshape(B, T, H, 3 * d).split(d, dim=-1)
     scale = ops.kernel_scale(d, torch.bfloat16).cuda()
@@ -222,6 +238,7 @@ def check_attention(ops, B, T, H, d, gen):
         "shape": [B, T, H, d],
         "max_abs_err": max_abs_err,
         "ms": time_ms(lambda: ops.attention_fwd(qkv, H)),
+        "ms_with_lse": time_ms(lambda: ops.attention_fwd(qkv, H, True)),
         "plain_ms": time_ms(lambda: ops.attention_plain(qkv, H), iters=5),
         "library_ms": time_ms(sdpa),
         "bound_ms": bound_ms,
@@ -230,7 +247,8 @@ def check_attention(ops, B, T, H, d, gen):
     print(f"attention {rec['shape']}: max_abs_err {max_abs_err:.3e} "
           f"(bound {ATTN_ATOL} + {ATTN_RTOL}*sum p|v|, max err / sum p|v| {max_rel:.3e}, "
           f"output rms {want_rms:.3e}; "
-          f"sdpa vs plain {sdpa_err:.3e}), kernel_ms {rec['ms']:.4f}, "
+          f"sdpa vs plain {sdpa_err:.3e}), lse max abs err {lse_err:.3e}, kernel_ms "
+          f"{rec['ms']:.4f} (with lse {rec['ms_with_lse']:.4f}), "
           f"plain_ms {rec['plain_ms']:.4f}, library_ms {rec['library_ms']:.4f}, "
           f"bound_us {1e3 * bound_ms:.2f} ({bound_by}), "
           f"exp_unit_us {1e6 * B * H * T * T / PEAK_EXP:.2f}", flush=True)
@@ -262,8 +280,12 @@ def check_backward(ops, B, T, H, d, gen):
     qkv = (2 ** 0.5 * torch.randn(B, T, 3 * H * d, generator=gen, device="cuda")
            ).to(torch.bfloat16)   # scores of std ~2: a softmax far from uniform
     g = torch.randn(B, T, H * d, generator=gen, device="cuda").to(torch.bfloat16)
-    got = ops.attention_bwd(qkv, g, H)
+    out, lse = ops.attention_fwd(qkv, H, True)   # as the training path feeds it
+    got = ops.attention_bwd(qkv, g, H, out, lse)
+    again = ops.attention_bwd(qkv, g, H, out, lse)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"two backward launches on {(B, T, H, d)} differ")
     want = ops.attention_bwd_plain(qkv, g, H)
     scale = ops.bwd_rounding_scale(qkv, g, H)
     err = (got.float() - want.float()).abs()
@@ -289,7 +311,7 @@ def check_backward(ops, B, T, H, d, gen):
     rec = {
         "shape": [B, T, H, d],
         "max_abs_err": float(err.max()),
-        "ms": time_ms(lambda: ops.attention_bwd(qkv, g, H)),
+        "ms": time_ms(lambda: ops.attention_bwd(qkv, g, H, out, lse)),
         "plain_ms": time_ms(lambda: ops.attention_bwd_plain(qkv, g, H), iters=3),
         "library_ms": max(time_ms(sdpa_both) - time_ms(sdpa_fwd), 0.0),
         "bound_ms": bound_ms,
@@ -424,11 +446,13 @@ def train_phase(cfg, ops, gen):
     stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
     data = synthetic_iterator(cfg.dataset, cfg.batch_size, seed=SEED, image_size=cfg.image_size)
     ops.attention_fwd.launches = ops.attention_bwd.launches = 0  # the main path's count
+    ops.attention_fwd.lse_launches = 0
     torch.cuda.reset_peak_memory_stats()
     state, records = run_training(cfg, model, diffusion, data, total_steps=TRAIN_STEPS,
                                   log_interval=1, device="cuda")
     launches = {"attention_fwd": ops.attention_fwd.launches,
                 "attention_bwd": ops.attention_bwd.launches}
+    lse_launches = ops.attention_fwd.lse_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for r in records:
         if not all(math.isfinite(r[k]) for k in ("loss", "mse", "kld_rep", "grad_norm")) \
@@ -437,6 +461,9 @@ def train_phase(cfg, ops, gen):
     if launches != {k: 8 * TRAIN_STEPS for k in launches}:
         raise AssertionError(f"{launches} attention launches in {TRAIN_STEPS} steps, expected "
                              f"8 of each per step")
+    if lse_launches != launches["attention_fwd"]:
+        raise AssertionError(f"{lse_launches} of {launches['attention_fwd']} training forward "
+                             "launches wrote lse, expected all")
     params = dict(model.named_parameters())
     # a parameter whose gradient is exactly 0 stays (the root variable's SCM
     # input is masked to zero, so its MLP's first weight never gets one)
@@ -458,8 +485,9 @@ def train_phase(cfg, ops, gen):
     print(f"train loop, batch {cfg.batch_size}, {TRAIN_STEPS} steps (one log line, and so one "
           f"sync, per step): loss {[round(r['loss'], 4) for r in records]}; steady step "
           f"{1e3 * step_s:.2f} ms over steps 3-{TRAIN_STEPS} ({cfg.batch_size / step_s:.1f} "
-          f"samples/s), first step {1e3 * records[0]['step_time_s']:.1f} ms; launches {launches}; "
-          f"peak memory {peak_gb:.3f} GB; zero-gradient parameters {zero_grad}; EMA rms from params {rms(e_now - p_now):.3e} < "
+          f"samples/s), first step {1e3 * records[0]['step_time_s']:.1f} ms; launches {launches} "
+          f"({lse_launches} forward launches wrote lse); peak memory {peak_gb:.3f} GB; "
+          f"zero-gradient parameters {zero_grad}; EMA rms from params {rms(e_now - p_now):.3e} < "
           f"initial {rms(p_before - p_now):.3e}", flush=True)
     return launches
 
@@ -571,7 +599,7 @@ def main():
     fill_weights_(model, SEED + 1)
     requests = serve.synthetic_requests(cfg, 32, SEED)
     runs = [("ddim", None, requests), ("dpm++", 25, {k: v[:16] for k, v in requests.items()})]
-    ops.attention_fwd.launches = 0  # the main path's count starts here
+    ops.attention_fwd.launches = ops.attention_fwd.lse_launches = 0  # the main path's count
     torch.cuda.reset_peak_memory_stats()
     unet_calls = 0
     for sampler, steps, req in runs:
@@ -591,6 +619,8 @@ def main():
     if launches["attention_fwd"] != 8 * unet_calls:
         raise AssertionError(f"attention launches {launches['attention_fwd']} != "
                              f"8 x {unet_calls} UNet calls")
+    if ops.attention_fwd.lse_launches:
+        raise AssertionError(f"{ops.attention_fwd.lse_launches} serving launches wrote lse")
 
     phase("6. training: morphomnist_causaldae at full width")
     del model
@@ -605,8 +635,8 @@ def main():
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
-            **{k: main_rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "shape")},
+            **{k: main_rec[k] for k in ("ms", "ms_with_lse", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "shape") if k in main_rec},
             "other_shapes": recs[1:],
         }
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from causaldiffae_tpu.models.attention import qkv_attention as jax_qkv_attention
@@ -101,6 +102,29 @@ def test_rounding_scale_is_sum_of_p_abs_v():
     got = ops.rounding_scale(t, H)
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=2 ** -7, atol=0)
     assert bool((got >= ops.attention_plain(t, H).float().abs() * (1 - 2 ** -7)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T,d", [(49, 32), (64, 64)])
+def test_plain_lse_matches_logsumexp_of_jax_scores(T, d, dtype):
+    """The plain version's row logsumexp against torch.logsumexp of its own
+    scores and against jax.nn.logsumexp of the scores the Pallas kernels form
+    (q and k scaled by dtype(d^-1/4), products summed in fp32)."""
+    x = _qkv(T, d, seed=5) * 2 ** 0.5
+    j, t = _pair(x, dtype)
+    out, lse = ops.attention_plain(t, H, True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, T)
+    torch.testing.assert_close(out, ops.attention_plain(t, H), atol=0, rtol=0)
+    q, k, _ = t.reshape(B, T, H, 3 * d).split(d, dim=-1)
+    sc = ops.kernel_scale(d, dtype)
+    s = torch.einsum("bthd,bshd->bhts", (q * sc).float(), (k * sc).float())
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=0, rtol=0)
+    jq, jk, _ = jnp.split(j.reshape(B, T, H, 3 * d), 3, axis=-1)
+    js = jnp.asarray(1.0 / d ** 0.25, j.dtype)
+    scores = jnp.einsum("bthd,bshd->bhts", (jq * js).astype(jnp.float32),
+                        (jk * js).astype(jnp.float32))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(scores, axis=-1)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_plain_version_scale_is_pallas_rounding():

@@ -96,6 +96,61 @@ def test_backward_matches_einsum_autograd_fp32(T, d):
     np.testing.assert_allclose(exact.numpy(), want.numpy(), **F32_TOL)
 
 
+@pytest.mark.parametrize("requires_grad", [True, False])
+def test_function_saves_output_and_lse_only_for_a_gradient(monkeypatch, requires_grad):
+    """On the CPU the Function runs the plain versions; it asks the forward
+    for lse only when qkv needs a gradient, and then saves qkv, the output
+    and lse; its backward hands the last two to the backward's wrapper."""
+    x, gx = _inputs(49, 32, seed=9)
+    qkv, g = _torch(x, torch.bfloat16), _torch(gx, torch.bfloat16)
+    asked, handed = [], []
+    real_fwd, real_bwd = ops.attention_fwd, ops.attention_bwd
+    monkeypatch.setattr(ops, "attention_fwd", lambda *a: asked.append(a[2:]) or real_fwd(*a))
+    monkeypatch.setattr(ops, "attention_bwd", lambda *a: handed.append(a[3:]) or real_bwd(*a))
+    leaf = qkv.clone().requires_grad_(requires_grad)
+    out = ops.fused_qkv_attention_t(leaf, H)
+    torch.testing.assert_close(out.detach(), ops.attention_plain(qkv, H), atol=0, rtol=0)
+    assert asked == [(True,)] if requires_grad else asked == [()]
+    if not requires_grad:
+        assert out.grad_fn is None
+        return
+    saved_qkv, saved_out, saved_lse = out.grad_fn.saved_tensors
+    assert saved_qkv.shape == qkv.shape and torch.equal(saved_out, out.detach())
+    torch.testing.assert_close(saved_lse, ops.attention_plain(qkv, H, True)[1], atol=0, rtol=0)
+    (grad,) = torch.autograd.grad(out, leaf, g)
+    assert len(handed) == 1 and torch.equal(handed[0][0], out.detach())
+    torch.testing.assert_close(grad, ops.attention_bwd_plain(qkv, g, H), atol=0, rtol=0)
+
+
+def test_d_from_rounded_output_is_within_its_bound():
+    """The backward kernel takes D = rowsum(g o) from the forward's bf16 output
+    where K2 forms D = rowsum(p dp) (attention_pallas.py:241). On the
+    flagship's head shape (T=784, d=32, 4 heads, B=2) with scores of std ~2,
+    the two stay within 2^-9 sum_j p_j (|g| . |v_j|) of each other per row:
+    2^-9 of the D term of M (ops.bwd_rounding_scale), far inside the 2^-6 M
+    bound. Worst case the roundings of p and of o add up to 2^-8; their signs
+    vary, so the sum stays well below. o here is the plain version's, which
+    rounds the normalised p; the forward kernel rounds the unnormalised p
+    and normalises at the store: one rounding of each term and one of o all
+    the same, so the same bound holds, and test_torch_cuda.py holds the
+    kernel's own output to it on the card."""
+    b, T, h, d = 2, 784, 4, 32
+    rng = np.random.RandomState(12)
+    x = (2 ** 0.5 * rng.randn(b, T, 3 * h * d)).astype(np.float32)
+    qkv = torch.from_numpy(x).to(torch.bfloat16)
+    g = torch.from_numpy(rng.randn(b, T, h * d).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv.reshape(b, T, h, 3 * d).split(d, dim=-1)
+    sc = ops.kernel_scale(d, torch.bfloat16)
+    p = torch.softmax(torch.einsum("bthd,bshd->bhts", (q * sc).double(), (k * sc).double()), -1)
+    gd, vd = g.reshape(b, T, h, d).double(), v.double()
+    want = (p * torch.einsum("bthd,bshd->bhts", gd, vd)).sum(-1)          # rowsum(p dp)
+    o = ops.attention_plain(qkv, h).reshape(b, T, h, d).double()
+    got = torch.einsum("bthd,bthd->bht", gd, o)                          # rowsum(g o)
+    bound = 2 ** -9 * (p * torch.einsum("bthd,bshd->bhts", gd.abs(), vd.abs())).sum(-1)
+    ratio = ((got - want).abs() / bound).max()
+    assert float(ratio) <= 1.0, float(ratio)
+
+
 @pytest.mark.parametrize("C,heads,dtype,through_function", [
     (64, 2, torch.bfloat16, True),       # head_dim 32, the _t entry
     (128, 2, torch.bfloat16, True),      # head_dim 64, the head-major entry

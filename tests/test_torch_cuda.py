@@ -14,6 +14,9 @@ by two bf16 ulps (2^-6) of the magnitude of the terms each output sums
 plain backward on the absolute values of its terms
 (``ops.bwd_rounding_scale``): each version rounds p, ds and the output to
 bf16 once, and one ulp apart at a term and at the output is 2^-6 of M.
+The backward kernel is fed the forward kernel's output and row logsumexp
+(lse), as the training path feeds it; lse is held against the plain fp32
+logsumexp within rtol = atol = 1e-5 (exp2 and fp32 sums in another order).
 """
 
 import pytest
@@ -36,7 +39,10 @@ def _qkv(b, T, h, d, device, seed=0, std=1.0):
     return (std * torch.randn(b, T, 3 * h * d, generator=g, device=device)).to(torch.bfloat16)
 
 
-BWD_SHAPES = [(16, 784, 4, 32), (16, 49, 4, 64), (3, 100, 2, 64), (2, 77, 2, 128)]
+BWD_SHAPES = [(16, 784, 4, 32), (16, 49, 4, 64), (3, 100, 2, 64), (2, 77, 2, 128),
+              # tails: the tensor maps' zero fill and the batch boundary
+              (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32), (3, 100, 2, 128)]
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -57,14 +63,33 @@ def test_attention_kernel_matches_plain(cuda_device, b, T, h, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,T,h,d", [
+    (16, 784, 4, 32), (16, 49, 4, 64), (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32),
+    (3, 100, 2, 128),
+])
+def test_attention_kernel_lse_matches_plain(cuda_device, b, T, h, d):
+    qkv = _qkv(b, T, h, d, cuda_device, seed=2, std=2 ** 0.5)
+    n, n_lse = ops.attention_fwd.launches, ops.attention_fwd.lse_launches
+    out, lse = ops.attention_fwd(qkv, h, True)
+    plain = ops.attention_fwd(qkv, h)
+    torch.cuda.synchronize()
+    assert (ops.attention_fwd.launches - n, ops.attention_fwd.lse_launches - n_lse) == (2, 1)
+    assert lse.shape == (b, h, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+    torch.testing.assert_close(lse, ops.attention_plain(qkv, h, True)[1], **LSE_TOL)
+
+
+@pytest.mark.cuda
 def test_attention_kernel_takes_row_strided_views(cuda_device):
     """A token axis with a row stride larger than 3C (a view into a wider buffer)."""
     b, T, h, d = 2, 49, 4, 64
     wide = _qkv(b, T, h, d + 8, cuda_device, seed=1)       # [b, T, 3*h*(d+8)]
     qkv = wide[..., :3 * h * d]
     assert not qkv.is_contiguous()
-    got = ops.attention_fwd(qkv, h)
-    torch.testing.assert_close(got, ops.attention_fwd(qkv.contiguous(), h), atol=0, rtol=0)
+    got, lse = ops.attention_fwd(qkv, h, True)
+    want, want_lse = ops.attention_fwd(qkv.contiguous(), h, True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
@@ -90,8 +115,9 @@ def _bwd_inputs(b, T, h, d, device):
 def test_attention_bwd_kernel_matches_plain(cuda_device, b, T, h, d):
     torch.backends.cuda.matmul.allow_tf32 = False
     qkv, g = _bwd_inputs(b, T, h, d, cuda_device)
+    out, lse = ops.attention_fwd(qkv, h, True)
     n = ops.attention_bwd.launches
-    got = ops.attention_bwd(qkv, g, h)
+    got = ops.attention_bwd(qkv, g, h, out, lse)
     torch.cuda.synchronize()
     assert ops.attention_bwd.launches == n + 1
     assert got.shape == qkv.shape and got.dtype == torch.bfloat16
@@ -99,7 +125,42 @@ def test_attention_bwd_kernel_matches_plain(cuda_device, b, T, h, d):
     err = (got.float() - ops.attention_bwd_plain(qkv, g, h).float()).abs()
     limit = ATOL + RTOL * ops.bwd_rounding_scale(qkv, g, h)
     assert bool((err <= limit).all()), f"max abs err {float(err.max())}"
-    torch.testing.assert_close(ops.attention_bwd(qkv, g, h), got, atol=0, rtol=0)  # deterministic
+    torch.testing.assert_close(ops.attention_bwd(qkv, g, h, out, lse), got,
+                               atol=0, rtol=0)  # deterministic
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_takes_row_strided_views(cuda_device):
+    """qkv and g as views into wider buffers (row strides larger than 3C and C)."""
+    b, T, h, d = 2, 77, 2, 32
+    wide, gw = _bwd_inputs(b, T, h, d + 16, cuda_device)
+    qkv, g = wide[..., :3 * h * d], gw[..., :h * d]
+    assert not qkv.is_contiguous() and not g.is_contiguous()
+    out, lse = ops.attention_fwd(qkv, h, True)
+    got = ops.attention_bwd(qkv, g, h, out, lse)
+    qc, gc = qkv.contiguous(), g.contiguous()
+    oc, lc = ops.attention_fwd(qc, h, True)
+    torch.testing.assert_close(got, ops.attention_bwd(qc, gc, h, oc, lc), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_d_from_kernel_output_is_within_its_bound(cuda_device):
+    """D = rowsum(g o), which the backward kernel takes from the forward
+    kernel's bf16 output, stays within 2^-9 sum_j p_j (|g| . |v_j|) of K2's
+    rowsum(p dp) per row on the flagship's head shape, as
+    test_torch_attention_bwd.py shows on the CPU for the plain output."""
+    b, T, h, d = 2, 784, 4, 32
+    qkv, g = _bwd_inputs(b, T, h, d, cuda_device)
+    o = ops.attention_fwd(qkv, h).reshape(b, T, h, d).double()
+    q, k, v = qkv.reshape(b, T, h, 3 * d).split(d, dim=-1)
+    sc = ops.kernel_scale(d, torch.bfloat16).to(cuda_device)
+    p = torch.softmax(torch.einsum("bthd,bshd->bhts", (q * sc).double(), (k * sc).double()), -1)
+    gd, vd = g.reshape(b, T, h, d).double(), v.double()
+    want = (p * torch.einsum("bthd,bshd->bhts", gd, vd)).sum(-1)          # rowsum(p dp)
+    got = torch.einsum("bthd,bthd->bht", gd, o)                          # rowsum(g o)
+    bound = 2 ** -9 * (p * torch.einsum("bthd,bshd->bhts", gd.abs(), vd.abs())).sum(-1)
+    ratio = float(((got - want).abs() / bound).max())
+    assert ratio <= 1.0, ratio
 
 
 @pytest.mark.cuda
@@ -122,9 +183,14 @@ def test_fused_attention_gradient_matches_plain_route(cuda_device):
 @pytest.mark.cuda
 def test_attention_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     qkv, g = _bwd_inputs(2, 49, 2, 32, cuda_device)
+    out, lse = ops.attention_fwd(qkv, 2, True)
     with pytest.raises(ValueError):      # g of the wrong width
-        ops.attention_bwd(qkv, g[..., :32], 2)
+        ops.attention_bwd(qkv, g[..., :32], 2, out, lse)
     with pytest.raises(ValueError):      # g with a strided channel axis
-        ops.attention_bwd(qkv, g.transpose(1, 2).contiguous().transpose(1, 2), 2)
+        ops.attention_bwd(qkv, g.transpose(1, 2).contiguous().transpose(1, 2), 2, out, lse)
     with pytest.raises(TypeError):
-        ops.attention_bwd(qkv.float(), g.float(), 2)
+        ops.attention_bwd(qkv.float(), g.float(), 2, out, lse)
+    with pytest.raises(ValueError):      # no forward output and lse
+        ops.attention_bwd(qkv, g, 2)
+    with pytest.raises(ValueError):      # lse not in the forward kernel's layout
+        ops.attention_bwd(qkv, g, 2, out, lse.contiguous())
