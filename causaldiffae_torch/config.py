@@ -15,7 +15,6 @@ from typing import Optional, Tuple
 import torch
 
 NUM_CLASSES = 10  # script_util.py:9
-CONTEXT_DIM = 4   # script_util.py:10
 
 # Causal graphs (row=cause -> col=effect).
 ADJACENCY = {
@@ -181,7 +180,9 @@ def create_model(cfg: Config, device="cuda"):
         channel_mult=cfg.channel_mult,
         image_size=cfg.image_size,
         num_classes=NUM_CLASSES if cfg.class_cond else None,
-        c_dim=CONTEXT_DIM if cfg.context_cond else None,
+        # the context is the dataset's label vector: flax's Dense takes its
+        # width from the batch, so the JAX model's c_dense1 is [n_labels, 256]
+        c_dim=len(DATA_SCALES[cfg.dataset]) if cfg.context_cond else None,
         rep_dim=cfg.rep_dim if cfg.rep_cond else None,
         causal_modeling=cfg.causal_modeling,
         num_heads=cfg.num_heads,

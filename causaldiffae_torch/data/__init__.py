@@ -1,5 +1,6 @@
-"""Training data: the synthetic morphomnist pool and its batch iterator."""
+"""Training data: the synthetic pools, the real-data loaders and the batch iterator."""
 
-from .synthetic import batch_iterator, synthetic_dataset, synthetic_iterator
+from .loaders import batch_iterator, load_data
+from .synthetic import synthetic_dataset, synthetic_iterator
 
-__all__ = ["batch_iterator", "synthetic_dataset", "synthetic_iterator"]
+__all__ = ["batch_iterator", "load_data", "synthetic_dataset", "synthetic_iterator"]

@@ -1,12 +1,11 @@
-"""The synthetic MorphoMNIST pool and its shuffled batch iterator.
+"""Synthetic datasets from the ground-truth SCMs, and their batch iterator.
 
-The port's own copy of the morphomnist subset of
-``causaldiffae_tpu/data/synthetic.py:31-65`` and of the numpy
-``batch_iterator`` (``data/loaders.py:200-210``) that the JAX package's
-``make_data_iterator`` falls back to. Batches are the trainer's format,
-NHWC as the JAX package feeds them: {'image': [B, H, W, 1] float32 in
-[0, 1] on the 8-bit grid, 'y': [B] int64, 'c': [B, 2] float32 normalised
-labels}. The other datasets and the real-data loaders are not ported yet.
+The port's own copy of ``causaldiffae_tpu/data/synthetic.py:31-110``: sample
+the exogenous factors, push them through the SCMs of ``simulators.py``,
+render, and snap the images onto the 8-bit grid. Batches are the trainer's
+format, NHWC as the JAX package feeds them: {'image': [B, H, W, C] float32
+in [0, 1], 'c': [B, n_vars] float32 normalised labels, and for MorphoMNIST
+'y': [B] int64}. Pendulum and CausalCircuit have no class labels.
 """
 
 from __future__ import annotations
@@ -16,9 +15,17 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config import DATA_SCALES
-from .simulators import morphomnist_scm, render_morphomnist
+from .loaders import batch_iterator
+from .simulators import (
+    circuit_scm,
+    morphomnist_scm,
+    pendulum_scm,
+    render_circuit,
+    render_morphomnist,
+    render_pendulum,
+)
 
-__all__ = ["synthetic_dataset", "batch_iterator", "synthetic_iterator"]
+__all__ = ["synthetic_dataset", "synthetic_iterator"]
 
 POOL = 4096  # samples in the training pool, as the JAX package's default
 
@@ -39,27 +46,29 @@ def _quantize8(data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def synthetic_dataset(dataset: str, n: int, seed: int = 0,
                       image_size: Optional[int] = None) -> Dict[str, np.ndarray]:
     """``n`` samples of the synthetic workload, made from ``seed``."""
-    if dataset != "morphomnist":
-        raise NotImplementedError(f"synthetic {dataset!r} is not ported yet (morphomnist is)")
     rng = np.random.RandomState(seed)
-    thickness = rng.uniform(0.7, 5.8, size=n)
-    intensity = morphomnist_scm(thickness, noise=rng.randn(n) * 4.0)
-    images = render_morphomnist(thickness, intensity, size=image_size or 28)
-    c = _normalize(np.stack([thickness, intensity], -1), dataset)
-    y = rng.randint(0, 10, size=n).astype(np.int64)
-    return _quantize8({"image": images, "y": y, "c": c})
-
-
-def batch_iterator(data: Dict[str, np.ndarray], batch_size: int,
-                   seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite epoch-shuffled batch iterator; drops each epoch's partial batch."""
-    n = len(data["image"])
-    rng = np.random.RandomState(seed)
-    while True:
-        idx = rng.permutation(n)
-        for i in range(0, (n // batch_size) * batch_size, batch_size):
-            sel = idx[i:i + batch_size]
-            yield {k: v[sel] for k, v in data.items()}
+    if dataset == "morphomnist":
+        thickness = rng.uniform(0.7, 5.8, size=n)
+        intensity = morphomnist_scm(thickness, noise=rng.randn(n) * 4.0)
+        images = render_morphomnist(thickness, intensity, size=image_size or 28)
+        c = _normalize(np.stack([thickness, intensity], -1), dataset)
+        y = rng.randint(0, 10, size=n).astype(np.int64)
+        return _quantize8({"image": images, "y": y, "c": c})
+    if dataset == "pendulum":
+        angle = rng.uniform(-40, 44, size=n)
+        light = rng.uniform(60, 148, size=n)
+        light = np.where(np.abs(light - 100) < 1e-3, 101.0, light)  # tan(pi/2) pole
+        slen, spos = pendulum_scm(angle, light)
+        images = render_pendulum(angle, light, size=image_size or 96)
+        c = _normalize(np.stack([angle, light, slen, spos], -1), dataset)
+        return _quantize8({"image": images, "c": c.astype(np.float32)})
+    if dataset == "circuit":
+        arm = rng.uniform(0, 1, size=n)
+        blue, green, red = circuit_scm(arm, rng)
+        images = render_circuit(arm, blue, green, red, size=image_size or 128)
+        c = np.stack([arm, blue, green, red], -1).astype(np.float32)
+        return _quantize8({"image": images, "c": c})
+    raise ValueError(f"unknown synthetic dataset: {dataset}")
 
 
 def synthetic_iterator(dataset: str, batch_size: int, seed: int = 0,

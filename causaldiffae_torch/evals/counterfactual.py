@@ -82,7 +82,9 @@ def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion,
 
     ``value`` is the normalized intervention level broadcast over the
     variable's latent block. 'auto' picks 'pre' for a root variable and
-    'post' for one with parents in ``cfg.adjacency``. ``rep_noise`` is the
+    'post' for one with parents in ``cfg.adjacency`` ('pre' for every
+    variable of a model without a causal graph, where the JAX function
+    raises). ``rep_noise`` is the
     shared reparameterization noise (shape of mu); ``abduction_noise`` the
     q_sample noise (shape of x).
     """
@@ -90,8 +92,9 @@ def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion,
         raise ValueError(f"abduction must be 'qsample' or 'ddim', got {abduction!r}")
     loop = resolve_sampler(use_ddim, sampler, sample_steps)
     n_vars = cfg.n_vars
-    if where == "auto":
-        has_parents = np.asarray(cfg.adjacency)[:, intervene_var].sum() > 0
+    if where == "auto":  # without a causal graph every variable is a root
+        has_parents = (cfg.adjacency is not None
+                       and np.asarray(cfg.adjacency)[:, intervene_var].sum() > 0)
         where = "post" if has_parents else "pre"
     if where not in ("pre", "post"):
         raise ValueError(f"where must be 'auto', 'pre' or 'post', got {where!r}")

@@ -1,50 +1,61 @@
 """Where the time of a counterfactual chain goes, on the card.
 
-Runs ``STEPS`` DDIM steps of the flagship preset's chain at batch ``BATCH``
-(random weights from ``SEED``; every weight filled, so that each block
-does real work) under ``torch.profiler``, and prints one JSON line: wall
+Runs ``STEPS`` DDIM steps of the chain of ``--preset`` (default the
+flagship ``morphomnist_causaldae``) at batch ``BATCH`` from the preset's
+synthetic data, with the class labels, context and representation it
+conditions on (random weights from ``SEED``; every weight filled, so that
+each block does real work) under ``torch.profiler``, and prints one JSON line: wall
 and device time per UNet call, the device's busy share (the sum of kernel
 times in the profiled window over the wall time of the same steps run
 without the profiler; one stream, so kernels do not overlap) and the
 kernels that take the most device time. Without device times in the trace
 it says so instead of printing a share.
 
-Usage: python -m causaldiffae_torch.profile_serving
+Usage: python -m causaldiffae_torch.profile_serving [--preset circuit_causaldae]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
+from typing import List, Optional
 
 import torch
 
-PRESET = "morphomnist_causaldae"
 BATCH = 16
 STEPS = 20
 SEED = 0
 TOP = 12  # kernels listed in the report
 
 
-def main():
+def main(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--preset", default="morphomnist_causaldae")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
 
     from torch.profiler import ProfilerActivity, profile
 
     from .config import create_diffusion, create_model, get_config
+    from .data import synthetic_dataset
+    from .training.loop import to_device
     from .utils.weights import fill_normal_
 
-    cfg = get_config(PRESET)
+    cfg = get_config(args.preset)
     model = create_model(cfg, device="cuda")
     fill_normal_(model, torch.Generator().manual_seed(SEED), std=0.02)
     diffusion = create_diffusion(cfg, eval_mode=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    B, s = BATCH, cfg.image_size
-    x = torch.randn(B, s, s, cfg.in_channels, generator=gen, device="cuda")
-    y = torch.arange(B, device="cuda") % 10
-    z = torch.randn(B, cfg.rep_dim, generator=gen, device="cuda")
-    model_fn = lambda xx, tt: model.denoise(xx, tt, y=y, z=z)
+    B = BATCH
+    data = to_device(synthetic_dataset(cfg.dataset, B, seed=SEED, image_size=cfg.image_size),
+                     "cuda")
+    x = data["image"] * 2 - 1
+    cond = {"y": data.get("y") if cfg.class_cond else None,
+            "c": data.get("c") if cfg.context_cond else None,
+            "z": torch.randn(B, cfg.rep_dim, generator=gen, device="cuda") if cfg.rep_cond else None}
+    model_fn = lambda xx, tt: model.denoise(xx, tt, **cond)
 
     def chain(n):
         xx = x
@@ -74,7 +85,7 @@ def main():
     device_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda k: -k[1])
     report = {
-        "preset": PRESET, "batch": B, "unet_calls": STEPS,
+        "preset": cfg.name, "batch": B, "unet_calls": STEPS,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_unet_call": plain_wall_ms / STEPS,
         "profiled_wall_ms_per_unet_call": wall_ms / STEPS,

@@ -1,28 +1,30 @@
 """Where the time of a train step goes, on the card.
 
-Runs ``STEPS`` train steps of the flagship preset at its batch of ``BATCH``
-(random weights from ``SEED``, every weight filled so that each block does
-real work; a synthetic batch moved to the card each step, as the train CLI
-does) under ``torch.profiler``, after ``WARMUP`` steps, and prints one JSON
+Runs ``STEPS`` train steps of ``--preset`` (default the flagship
+``morphomnist_causaldae``) at the preset's batch and image shape (random
+weights from ``SEED``, every weight filled so that each block does real
+work; a batch of the preset's synthetic data moved to the card each step,
+as the train CLI does) under ``torch.profiler``, after ``WARMUP`` steps, and prints one JSON
 line: wall and device time per step, the device's busy share (the sum of
 kernel times in the profiled window over the wall time of the same steps run
 without the profiler; one stream, so kernels do not overlap), kernel
-launches per step, peak memory, the kernels that take the most device time,
+launches per step, the runtime calls per step that make the host wait for
+the device, peak memory, the kernels that take the most device time,
 and the attention kernels by name. Without device times in the trace it says
 so instead of printing a share.
 
-Usage: python -m causaldiffae_torch.profile_training
+Usage: python -m causaldiffae_torch.profile_training [--preset circuit_causaldae]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
+from typing import List, Optional
 
 import torch
 
-PRESET = "morphomnist_causaldae"
-BATCH = 128
 STEPS = 10
 WARMUP = 3
 SEED = 0
@@ -31,7 +33,10 @@ ATTENTION_KERNELS = ("attention_fwd_kernel", "attention_bwd_dq_kernel",
                      "attention_bwd_dkv_kernel")
 
 
-def main():
+def main(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--preset", default="morphomnist_causaldae")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
 
@@ -44,12 +49,12 @@ def main():
     from .training.loop import to_device
     from .utils.weights import fill_normal_
 
-    cfg = get_config(PRESET).replace(batch_size=BATCH, seed=SEED)
+    cfg = get_config(args.preset).replace(seed=SEED)
     model = create_model(cfg, device="cuda")
     fill_normal_(model, torch.Generator().manual_seed(SEED), std=0.02)
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, model, create_diffusion(cfg), state.optimizer)
-    batch = synthetic_dataset(cfg.dataset, BATCH, seed=SEED)
+    batch = synthetic_dataset(cfg.dataset, cfg.batch_size, seed=SEED, image_size=cfg.image_size)
 
     def run(n):
         for _ in range(n):
@@ -78,14 +83,19 @@ def main():
                                     "share_of_device_time": us / 1e3 / device_ms,
                                     "launches_per_step": c / STEPS}
     report = {
-        "preset": PRESET, "batch": BATCH, "steps": STEPS,
+        "preset": cfg.name, "batch": cfg.batch_size, "steps": STEPS,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": plain_wall_ms / STEPS,
-        "samples_per_s": BATCH * STEPS / (plain_wall_ms / 1e3),
+        "samples_per_s": cfg.batch_size * STEPS / (plain_wall_ms / 1e3),
         "profiled_wall_ms_per_step": wall_ms / STEPS,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss": float(metrics["loss"]),
     }
+    # runtime calls that make the host wait for the device (the window's
+    # closing synchronize() is one of them)
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU and "Synchronize" in e.key)
+    report["host_syncs_per_step"] = (syncs - 1) / STEPS
     if device_ms > 0:
         report.update({
             "device_ms_per_step": device_ms / STEPS,

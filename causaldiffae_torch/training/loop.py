@@ -1,23 +1,44 @@
 """Host-side training loop.
 
-The subset of ``causaldiffae_tpu/training/loop.py:74-245`` that the train
-CLI needs: iterate batches, move each to the device (the batch stays NHWC,
-as the JAX package feeds it; the model goes NCHW inside), call the train
-step, and emit one JSON record every ``log_interval`` steps with the step,
-the metrics, the host-clock time per step and samples per second. The
-metrics stay on the device between log lines, so only a log line waits for
-the device. Checkpoints, resume and the SIGTERM save are not ported yet.
+Port of ``causaldiffae_tpu/training/loop.py:74-245``: iterate batches, move
+each to the device (the batch stays NHWC, as the JAX package feeds it; the
+model goes NCHW inside), call the train step, log at ``log_interval`` (and
+at the last step), checkpoint at ``save_interval`` and at an end off the interval, and resume
+from the latest checkpoint.
+
+- One batch in flight: batch k+1 is copied to the card on a side stream
+  from pinned memory while step k runs.
+- Lagged metric readback: at a log interval the step's metrics are stacked
+  on the device and copied with ``non_blocking=True`` into pinned host
+  memory behind a CUDA event; they are logged at the NEXT interval (or at
+  the end), when the copy has long arrived, so no log line waits for the
+  device. A record is stamped when its step is dispatched, so its
+  ``step_time_s`` and ``samples_per_sec`` are dispatch rates that converge
+  to the device's over a run.
+- SIGTERM/SIGINT set a flag; the loop saves at the top of the next step and
+  returns, restoring the old handlers. ``DIFFUSION_TRAINING_TEST`` in the
+  environment makes it return after the first save.
+
+Each record goes to the logger (``logkv_mean``/``dumpkvs``: progress.csv,
+progress.json, log.txt as configured) and, as one JSON line, to stdout. Its
+``wait_data`` is the host time spent drawing batches since the record
+before it.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import signal
+import sys
 import time
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import logger
+from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .train_step import make_train_step
 
@@ -35,28 +56,141 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+class _Feed:
+    """Batches from ``data`` on ``device``, each copied ahead of its step:
+    on a card the copy runs on a side stream, and ``ready`` makes the
+    current stream wait for it."""
+
+    def __init__(self, data: Iterator[Dict[str, np.ndarray]], device):
+        self.data = data
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def fetch(self) -> Dict[str, torch.Tensor]:
+        with logger.profile_kv("data"):
+            batch = next(self.data)
+        if self.stream is None:
+            return to_device(batch, self.device)
+        with torch.cuda.stream(self.stream):
+            return to_device(batch, self.device)
+
+    def ready(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.stream is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_stream(self.stream)
+            for t in batch.values():
+                t.record_stream(current)
+        return batch
+
+
+def _start_readback(metrics: Dict[str, torch.Tensor]):
+    """Start copying the metrics to the host; returns (keys, host values, event)."""
+    keys = sorted(k for k in metrics if not k.endswith("_count"))
+    values = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+    if values.device.type != "cuda":
+        return keys, values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return keys, host, done
+
+
+def _note(msg: str) -> None:
+    logger.log(msg)
+    print(msg, file=sys.stderr, flush=True)
+
+
 def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str, np.ndarray]],
-                 *, total_steps: int, log_interval: int,
-                 device) -> Tuple[TrainState, List[dict]]:
-    """Train ``model`` for ``total_steps`` steps (fewer if the LR anneal ends
-    first) from a fresh state; prints each record and returns the state and
-    the records."""
+                 *, total_steps: int, log_interval: int, device,
+                 ckpt_dir: Optional[str] = None,
+                 resume: bool = True) -> Tuple[TrainState, List[dict]]:
+    """Train ``model`` up to step ``total_steps`` (fewer if the LR anneal ends
+    first), resuming from the latest checkpoint in ``ckpt_dir`` unless
+    ``resume`` is false; returns the state and the logged records.
+
+    Weights already in ``model`` (from ``--init_from``) seed the state, EMA
+    copies included; a checkpoint, when there is one, replaces them. Each
+    checkpoint records ``cfg``.
+
+    The loop runs in one process: it has no gradient all-reduce, so it
+    refuses to run under ``torch.distributed``, where every rank would
+    train a model of its own.
+    """
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        raise RuntimeError("run_training is single-process: under torch.distributed each rank "
+                           "would train a model of its own")
     state = create_train_state(cfg, model)
+    ckpt = CheckpointManager(ckpt_dir, config=cfg) if ckpt_dir else None
+    if resume and ckpt is not None and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        _note(f"resumed from checkpoint at step {state.step}")
+    resume_step = state.step
     step_fn = make_train_step(cfg, model, diffusion, state.optimizer)
-    records = []
-    t_last, step_last, samples = time.perf_counter(), state.step, 0
-    while state.step < total_steps and (not cfg.lr_anneal_steps
-                                        or state.step < cfg.lr_anneal_steps):
-        batch = to_device(next(data), device)
-        metrics = step_fn(state, batch)
-        samples += batch["image"].shape[0]
-        if state.step % log_interval == 0 or state.step == total_steps:
-            values = {k: float(v) for k, v in metrics.items() if not k.endswith("_count")}
-            now = time.perf_counter()  # float() above waited for the device
-            rec = {"step": state.step, **values,
-                   "step_time_s": (now - t_last) / (state.step - step_last),
-                   "samples_per_s": samples / (now - t_last), "device": str(device)}
-            records.append(rec)
-            print(json.dumps(rec), flush=True)
-            t_last, step_last, samples = now, state.step, 0
+    batch_size = cfg.batch_size
+    records: List[dict] = []
+    pending = None   # (step, stamp, readback) of the last interval, not yet logged
+    t_start = last = time.perf_counter()
+    last_step = resume_step
+
+    def log_pending():
+        nonlocal pending, last, last_step
+        if pending is None:
+            return
+        at_step, stamp, (keys, host, done) = pending
+        pending = None
+        if done is not None:
+            done.synchronize()
+        for k, v in zip(keys, host.tolist()):
+            logger.logkv_mean(k, v)
+        logger.logkv("step", at_step)
+        logger.logkv("samples", at_step * batch_size)
+        logger.logkv("samples_per_sec", (at_step - resume_step) * batch_size
+                     / max(stamp - t_start, 1e-9))
+        logger.logkv("step_time_s", (stamp - last) / max(at_step - last_step, 1))
+        last, last_step = stamp, at_step
+        rec = {**logger.dumpkvs(), "device": str(device)}
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def save():
+        ckpt.save(state.step, state)
+        _note(f"saved checkpoint at step {state.step}")
+
+    preempted = []
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, lambda signum, frame: preempted.append(signum))
+        except ValueError:  # not the main thread
+            pass
+    try:
+        feed = _Feed(data, device)
+        next_batch = feed.fetch()
+        while state.step < total_steps and (not cfg.lr_anneal_steps
+                                            or state.step < cfg.lr_anneal_steps):
+            if preempted:
+                _note("preemption signal received - checkpointing and exiting")
+                log_pending()
+                if ckpt is not None:
+                    save()
+                return state, records
+            metrics = step_fn(state, feed.ready(next_batch))
+            next_batch = feed.fetch()
+            if state.step % log_interval == 0 or state.step == total_steps:
+                stamp = time.perf_counter()
+                started = (state.step, stamp, _start_readback(metrics))
+                log_pending()
+                pending = started
+            if ckpt is not None and state.step % cfg.save_interval == 0:
+                save()
+                if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
+                    log_pending()
+                    return state, records
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    log_pending()
+    if ckpt is not None and state.step % cfg.save_interval != 0:
+        save()
     return state, records

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two main paths on the full-width ``morphomnist_causaldae``
-preset -- counterfactual serving, and training through the train CLI's code
-path -- through the hand-written attention kernels, and fails loudly. Needs
-a CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX or of the
-JAX package. Phases:
+Drives the port's main paths through the hand-written attention kernels,
+and fails loudly: counterfactual serving and training on the full-width
+``morphomnist_causaldae`` preset, then train, checkpoint, resume and serve
+through the train and serve CLIs on the full-width ``circuit_causaldae``
+and ``pendulum_causaldae`` presets. Needs a CUDA device and the CUDA
+toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32 off
    for matrix products and convolutions, so that the fp32 plain versions
@@ -13,14 +14,15 @@ JAX package. Phases:
 2. build every kernel from ``causaldiffae_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, all started together;
 3. the forward kernel against its plain PyTorch version at the main paths'
-   shapes (batch 16 serving, batch 128 training; a tail and a d=128 case),
+   shapes (morphomnist at batch 16 serving and 128 training, a tail case;
+   the circuit's and the pendulum's d=64 and d=128 shapes),
    its row logsumexp (lse, written only when asked for) against the plain
    lse, with times of the kernel (with and without lse), the plain version
    and the one-call library yardstick, beside the least time the card could
    take;
 3b. the backward kernel, fed the forward kernel's output and lse as the
    training path feeds it, against its plain version at the training shapes
-   (batch 128), a tail and a d=128 case: per element within 1e-4 + 1.6e-2 M
+   of the three presets and a tail case: per element within 1e-4 + 1.6e-2 M
    (M the plain backward on the absolute values of its terms), no farther
    from an fp64 gradient than 1.5x the plain version, two launches bit-equal,
    with its times, SDPA's backward time (forward + backward minus forward)
@@ -42,8 +44,21 @@ JAX package. Phases:
    read after (8 forward launches, each writing lse, and 8 backward launches
    per step), checking finite losses and grad norms, moved params (all but
    those whose gradient is exactly 0), an EMA that moved toward them and
-   changed BatchNorm statistics; steady step time, samples per second and
-   peak memory.
+   changed BatchNorm statistics; steady step time (host clock between
+   device syncs, one per step), samples per second and peak memory;
+7. ``circuit_causaldae`` at full width (128x128x3; 15 attention blocks per
+   UNet call, 7 at T=256 d=64, 7 at T=64 d=128, 1 at T=16 d=128): the
+   gradient check of phase 6 at batch 16 (15 forward launches, each writing
+   lse, and 15 backward launches); the train CLI's ``main`` for 4 steps with
+   a save every 2, then again to step 6, which must resume at step 4 and
+   leave checkpoints {2, 4, 6}, with finite losses and grad norms, no
+   skipped step, 15 launches of each kind per step and a progress.csv row
+   per step; then the serve CLI's ``main`` from the checkpoint, 16 requests
+   through DDIM-250: finite answers in [-1, 1], 15 forward launches per
+   UNet call and none writing lse;
+8. ``pendulum_causaldae`` at full width (96x96x4; only the middle block
+   attends, T=144 d=128): the same, with 2 + 2 steps (one save, a resume)
+   and DPM++-25, 1 launch of each kind per step and 1 per UNet call.
 
 Prints the card line and one ``{"kernels": [...]}`` JSON line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -54,14 +69,18 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -78,14 +97,26 @@ ATTN_SHAPES = [  # (B, T, heads, d): the serving path's two shapes first
     (128, 784, 4, 32),  # the same blocks at the training batch
     (128, 49, 4, 64),
     (3, 100, 2, 64),    # query and key tails
-    (2, 77, 2, 128),    # the other presets' head width
+    (2, 77, 2, 128),
+    (16, 256, 4, 64),   # circuit_causaldae, serving and training: 7 blocks at ds=8,
+    (16, 64, 4, 128),   # 7 at ds=16
+    (16, 16, 4, 128),   # and the middle block at ds=32
+    (16, 144, 4, 128),  # pendulum_causaldae's middle block, serving
+    (32, 144, 4, 128),  # and training
 ]
 BWD_SHAPES = [          # the training path's two shapes first
     (128, 784, 4, 32),
     (128, 49, 4, 64),
     (3, 100, 2, 64),
     (2, 77, 2, 128),
+    (16, 256, 4, 64),   # circuit_causaldae
+    (16, 64, 4, 128),
+    (16, 16, 4, 128),
+    (32, 144, 4, 128),  # pendulum_causaldae
 ]
+# the attention launches of one UNet call of each preset (forward; the same
+# count of backward launches per train step)
+ATTN_PER_CALL = {"morphomnist_causaldae": 8, "circuit_causaldae": 15, "pendulum_causaldae": 1}
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 logsumexp: exp2 and sums in another order
 FP64_BATCH = 16         # the fp64 gradient check runs on the first 16 batch elements
 TRAIN_STEPS = 8
@@ -400,64 +431,113 @@ def rms(a):
     return float(a.float().pow(2).mean().sqrt())
 
 
-def train_phase(cfg, ops, gen):
-    """Phase 6: the gradient check at batch 16, then the train CLI's loop at
-    the preset's batch; returns the kernels' launch counts of the loop."""
+def reset_counts(ops):
+    ops.attention_fwd.launches = ops.attention_fwd.lse_launches = 0
+    ops.attention_bwd.launches = 0
+
+
+def counts(ops):
+    """(forward, forward writing lse, backward) launches since the last reset."""
+    return (ops.attention_fwd.launches, ops.attention_fwd.lse_launches,
+            ops.attention_bwd.launches)
+
+
+def gradient_check(cfg, ops, gen, seed):
+    """One step's gradient at batch GRAD_BATCH with the kernels, with their
+    plain versions and with fp64 attention, on the same random weights,
+    batch and draws: the kernels' may stand at most 1.5x as far from the
+    fp64 one (RMS over all parameters) as the plain versions'. One gradient
+    launches each kernel once per attention block, every forward writing lse."""
     from causaldiffae_torch.config import create_diffusion, create_model
-    from causaldiffae_torch.data import synthetic_dataset, synthetic_iterator
-    from causaldiffae_torch.serve import build_model
-    from causaldiffae_torch.training import run_training
+    from causaldiffae_torch.data import synthetic_dataset
     from causaldiffae_torch.training.loop import to_device
 
     diffusion = create_diffusion(cfg)
     model = create_model(cfg, device="cuda").train()
-    fill_weights_(model, SEED + 2)
-    B = GRAD_BATCH
-    batch = to_device(synthetic_dataset(cfg.dataset, B, seed=SEED), "cuda")
+    fill_weights_(model, seed)
+    B, s = GRAD_BATCH, cfg.image_size
+    batch = to_device(synthetic_dataset(cfg.dataset, B, seed=SEED, image_size=s), "cuda")
     draws = {"t": torch.randint(0, diffusion.num_timesteps, (B,), generator=gen, device="cuda"),
-             "noise": torch.randn(B, 28, 28, 1, generator=gen, device="cuda"),
+             "noise": torch.randn(B, s, s, cfg.in_channels, generator=gen, device="cuda"),
              "rep_noise": torch.randn(B, cfg.rep_dim, generator=gen, device="cuda"),
              "keep": torch.tensor([1.0, 0.0] * (B // 2), device="cuda")}
-    n_fwd, n_bwd = ops.attention_fwd.launches, ops.attention_bwd.launches
+    before = counts(ops)
     g_kernel = training_gradients(cfg, model, diffusion, batch, draws)
     torch.cuda.synchronize()
-    launched = (ops.attention_fwd.launches - n_fwd, ops.attention_bwd.launches - n_bwd)
-    if launched != (8, 8):
-        raise AssertionError(f"one full-width gradient launched {launched} (forward, backward) "
-                             "attention kernels, expected (8, 8)")
+    launched = tuple(a - b for a, b in zip(counts(ops), before))
+    n = ATTN_PER_CALL[cfg.name]
+    if launched != (n, n, n):
+        raise AssertionError(f"one full-width {cfg.name} gradient launched {launched} (forward, "
+                             f"forward with lse, backward) attention kernels, expected {n} each")
     with route_attention(PlainAttention.apply):
         g_plain = training_gradients(cfg, model, diffusion, batch, draws)
     with route_attention(lambda qkv, heads: exact_attention(ops, qkv, heads)[0].to(qkv.dtype)):
         g_exact = training_gradients(cfg, model, diffusion, batch, draws)
     d_k, d_p = rms(g_kernel - g_exact), rms(g_plain - g_exact)
-    print(f"full-width gradient at B={B}, {g_kernel.numel()} parameters: rms {rms(g_exact):.4e}; "
-          f"rms distance from the gradient with fp64 attention: kernels {d_k:.4e}, plain "
-          f"{d_p:.4e} (ratio {d_k / d_p:.3f}, limit 1.5); kernels vs plain {rms(g_kernel - g_plain):.4e}")
+    print(f"{cfg.name}: full-width gradient at B={B}, {g_kernel.numel()} parameters: rms "
+          f"{rms(g_exact):.4e}; rms distance from the gradient with fp64 attention: kernels "
+          f"{d_k:.4e}, plain {d_p:.4e} (ratio {d_k / d_p:.3f}, limit 1.5); kernels vs plain "
+          f"{rms(g_kernel - g_plain):.4e}; launches {launched}", flush=True)
     if not bool(torch.isfinite(g_kernel).all()) or d_k > 1.5 * d_p:
         raise AssertionError("the kernels' full-width gradient is not finite or stands farther "
                              "from the fp64-attention gradient than the plain version's allows")
     del model, g_kernel, g_plain, g_exact
     torch.cuda.empty_cache()
 
+
+def check_records(name, records, steps):
+    """The train loop's records of ``steps``: finite losses and grad norms, none skipped."""
+    if [r["step"] for r in records] != list(steps):
+        raise AssertionError(f"{name}: records of steps {[r['step'] for r in records]}, "
+                             f"expected {list(steps)}")
+    for r in records:
+        if not all(math.isfinite(r[k]) for k in ("loss", "mse", "kld_rep", "grad_norm")) \
+                or r["step_skipped"] != 0.0:
+            raise AssertionError(f"{name} train step {r['step']}: non-finite loss or grad "
+                                 "norm, or skipped")
+
+
+class SyncedStamps:
+    """A batch iterator that syncs the card and stamps the host clock at each
+    request. The loop asks for batch k+1 right after it dispatches step k,
+    so consecutive stamps bracket one step, its device work included."""
+
+    def __init__(self, data):
+        self.data, self.stamps = data, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return next(self.data)
+
+
+def train_phase(cfg, ops, gen):
+    """Phase 6: the gradient check at batch 16, then the train CLI's loop at
+    the preset's batch; returns the kernels' launch counts of the loop."""
+    from causaldiffae_torch.config import create_diffusion
+    from causaldiffae_torch.data import synthetic_iterator
+    from causaldiffae_torch.serve import build_model
+    from causaldiffae_torch.training import run_training
+
+    gradient_check(cfg, ops, gen, SEED + 2)
     # the train CLI's code path (train.main builds the same model and loop)
     model = build_model(cfg, "", SEED, "cuda")
     fill_weights_(model, SEED + 3)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
-    data = synthetic_iterator(cfg.dataset, cfg.batch_size, seed=SEED, image_size=cfg.image_size)
-    ops.attention_fwd.launches = ops.attention_bwd.launches = 0  # the main path's count
-    ops.attention_fwd.lse_launches = 0
+    data = SyncedStamps(synthetic_iterator(cfg.dataset, cfg.batch_size, seed=SEED,
+                                           image_size=cfg.image_size))
+    reset_counts(ops)  # the main path's count
     torch.cuda.reset_peak_memory_stats()
-    state, records = run_training(cfg, model, diffusion, data, total_steps=TRAIN_STEPS,
-                                  log_interval=1, device="cuda")
-    launches = {"attention_fwd": ops.attention_fwd.launches,
-                "attention_bwd": ops.attention_bwd.launches}
-    lse_launches = ops.attention_fwd.lse_launches
+    state, records = run_training(cfg, model, create_diffusion(cfg), data,
+                                  total_steps=TRAIN_STEPS, log_interval=1, device="cuda")
+    fwd, lse_launches, bwd = counts(ops)
+    launches = {"attention_fwd": fwd, "attention_bwd": bwd}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for r in records:
-        if not all(math.isfinite(r[k]) for k in ("loss", "mse", "kld_rep", "grad_norm")) \
-                or r["step_skipped"] != 0.0:
-            raise AssertionError(f"train step {r['step']}: non-finite loss or grad norm, or skipped")
+    check_records(cfg.name, records, range(1, TRAIN_STEPS + 1))
     if launches != {k: 8 * TRAIN_STEPS for k in launches}:
         raise AssertionError(f"{launches} attention launches in {TRAIN_STEPS} steps, expected "
                              f"8 of each per step")
@@ -480,16 +560,106 @@ def train_phase(cfg, ops, gen):
         raise AssertionError("the EMA did not move toward the params")
     if all(torch.equal(b, stats[n]) for n, b in model.named_buffers() if n in stats):
         raise AssertionError("the BatchNorm running statistics did not change")
-    steady = records[2:]
-    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
-    print(f"train loop, batch {cfg.batch_size}, {TRAIN_STEPS} steps (one log line, and so one "
-          f"sync, per step): loss {[round(r['loss'], 4) for r in records]}; steady step "
-          f"{1e3 * step_s:.2f} ms over steps 3-{TRAIN_STEPS} ({cfg.batch_size / step_s:.1f} "
-          f"samples/s), first step {1e3 * records[0]['step_time_s']:.1f} ms; launches {launches} "
+    # stamps[k] - stamps[k-1] is step k between device syncs; steps 3 on are steady
+    step_ms = [1e3 * (b - a) for a, b in zip(data.stamps, data.stamps[1:])]
+    steady = step_ms[2:]
+    step_s = sum(steady) / len(steady) / 1e3
+    print(f"train loop, batch {cfg.batch_size}, {TRAIN_STEPS} steps (host clock between device "
+          f"syncs, one per step; metrics read back one step late): loss "
+          f"{[round(r['loss'], 4) for r in records]}; step ms {[round(t, 2) for t in step_ms]}; "
+          f"steady step {1e3 * step_s:.2f} ms over steps 3-{TRAIN_STEPS} "
+          f"({cfg.batch_size / step_s:.1f} samples/s); launches {launches} "
           f"({lse_launches} forward launches wrote lse); peak memory {peak_gb:.3f} GB; "
           f"zero-gradient parameters {zero_grad}; EMA rms from params {rms(e_now - p_now):.3e} < "
           f"initial {rms(p_before - p_now):.3e}", flush=True)
     return launches
+
+
+def cli_phase(name, ops, gen, *, steps, save_interval, sampler, sample_steps, intervene_var):
+    """Phases 7 and 8 on preset ``name`` at full width: the gradient check,
+    then the train CLI's ``main`` to step ``steps[0]`` and again to
+    ``steps[1]`` (it must resume), then the serve CLI's ``main`` from the
+    checkpoint. Returns the kernels' launch counts by path."""
+    from causaldiffae_torch import serve, train
+    from causaldiffae_torch.config import get_config
+    from causaldiffae_torch.training import CheckpointManager
+
+    cfg = get_config(name)
+    n = ATTN_PER_CALL[name]
+    gradient_check(cfg, ops, gen, SEED + 4)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix=f"smoke-{name}-", dir=os.path.join(REPO, "build"))
+    ckpt, logdir = os.path.join(work, "ckpt"), os.path.join(work, "log")
+    args = ["--preset", name, "--synthetic", "--save_interval", str(save_interval),
+            "--log_interval", "1", "--ckpt_dir", ckpt, "--logdir", logdir]
+    try:
+        reset_counts(ops)  # the training path's count
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, first = train.main(args + ["--total_steps", str(steps[0])])
+        t_first = time.perf_counter() - t0
+        fwd, lse, bwd = counts(ops)
+        if (state.step, fwd, lse, bwd) != (steps[0], n * steps[0], n * steps[0], n * steps[0]):
+            raise AssertionError(f"{name}: train CLI to step {steps[0]} ended at step "
+                                 f"{state.step} with (forward, with lse, backward) launches "
+                                 f"{(fwd, lse, bwd)}, expected {n} each per step")
+        state, second = train.main(args + ["--total_steps", str(steps[1])])
+        train_counts = counts(ops)
+        peak_train = torch.cuda.max_memory_allocated() / 1e9
+        more = steps[1] - steps[0]
+        if (state.step, train_counts) != (steps[1], (fwd + n * more, lse + n * more,
+                                                     bwd + n * more)):
+            raise AssertionError(f"{name}: the resumed train CLI ended at step {state.step} with "
+                                 f"launches {train_counts}, expected {n} of each per step")
+        check_records(name, first + second, range(1, steps[1] + 1))  # resumed at steps[0]
+        saved = CheckpointManager(ckpt).all_steps()
+        on_interval = [k for k in range(save_interval, steps[1] + 1, save_interval)]
+        if saved != sorted(set(on_interval + list(steps)))[-3:]:
+            raise AssertionError(f"{name}: checkpoints at steps {saved}")
+        with open(os.path.join(logdir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if [int(float(r["step"])) for r in rows] != list(range(1, steps[1] + 1)):
+            raise AssertionError(f"{name}: progress.csv rows of steps {[r['step'] for r in rows]}")
+        recs = first + second
+        print(f"{name}: train CLI, batch {cfg.batch_size}, steps 1-{steps[0]}, then resumed at "
+              f"{steps[0]} to {steps[1]}; checkpoints {saved}; loss "
+              f"{[round(r['loss'], 4) for r in recs]}; grad norm "
+              f"{[round(r['grad_norm'], 3) for r in recs]}; step_time_s (stamped at dispatch, "
+              f"saves included) {[round(r['step_time_s'], 4) for r in recs]}; samples_per_sec "
+              f"{round(first[-1]['samples_per_sec'], 1)}, {round(second[-1]['samples_per_sec'], 1)}; "
+              f"first main() {t_first:.1f} s with the synthetic pool; launches (forward, with lse, "
+              f"backward) {train_counts}; peak memory {peak_train:.3f} GB", flush=True)
+
+        out = os.path.join(work, "answers.npz")
+        serve_args = ["--preset", name, "--ckpt_dir", ckpt, "--synthetic", "16", "--batch", "16",
+                      "--value", "1.0", "--intervene_var", str(intervene_var), "--sampler",
+                      sampler, "--out", out, "--seed", str(SEED)]
+        if sample_steps:
+            serve_args += ["--sample_steps", str(sample_steps)]
+        reset_counts(ops)  # the serving path's count
+        torch.cuda.reset_peak_memory_stats()
+        records = serve.main(serve_args)
+        fwd, lse, _ = counts(ops)
+        peak_serve = torch.cuda.max_memory_allocated() / 1e9
+        calls = sum(r["unet_calls"] for r in records)
+        with np.load(out) as z:
+            samples = z["samples"]
+        s = cfg.image_size
+        if not (samples.shape == (16, s, s, cfg.in_channels) and np.isfinite(samples).all()
+                and float(np.abs(samples).max()) <= 1.0 + 1e-6):
+            raise AssertionError(f"{name}: answers not finite, of shape {samples.shape} or "
+                                 "outside [-1, 1]")
+        if fwd != n * calls or lse:
+            raise AssertionError(f"{name}: {fwd} forward launches ({lse} with lse) for {calls} "
+                                 f"UNet calls, expected {n} per call and none with lse")
+        lat = records[0]["latency_s"]
+        print(f"{name}: serve CLI from step {steps[1]} (EMA weights), 16 requests, {sampler}: "
+              f"{calls} UNet calls, latency {lat:.3f} s ({1e3 * lat / calls:.2f} ms per UNet "
+              f"call, {16 / lat:.2f} images/s, first batch of the process), {fwd} forward "
+              f"launches, none with lse; peak memory {peak_serve:.3f} GB", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"training": train_counts, "serving": fwd}
 
 
 def main():
@@ -599,7 +769,7 @@ def main():
     fill_weights_(model, SEED + 1)
     requests = serve.synthetic_requests(cfg, 32, SEED)
     runs = [("ddim", None, requests), ("dpm++", 25, {k: v[:16] for k, v in requests.items()})]
-    ops.attention_fwd.launches = ops.attention_fwd.lse_launches = 0  # the main path's count
+    reset_counts(ops)  # the main path's count
     torch.cuda.reset_peak_memory_stats()
     unet_calls = 0
     for sampler, steps, req in runs:
@@ -627,6 +797,13 @@ def main():
     torch.cuda.empty_cache()
     train_launches = train_phase(cfg, ops, gen)
 
+    phase("7. circuit_causaldae at full width: train, checkpoint, resume, serve")
+    circuit = cli_phase("circuit_causaldae", ops, gen, steps=(4, 6), save_interval=2,
+                        sampler="ddim", sample_steps=None, intervene_var=0)
+    phase("8. pendulum_causaldae at full width: train, checkpoint, resume, serve")
+    pendulum = cli_phase("pendulum_causaldae", ops, gen, steps=(2, 4), save_interval=2,
+                         sampler="dpm++", sample_steps=25, intervene_var=2)
+
     def record(name, replaces, recs, launches_by_path):
         main_rec = recs[0]
         return {
@@ -643,10 +820,15 @@ def main():
     kernels = [
         record("attention_fwd", "causaldiffae_tpu/ops/attention_pallas.py:116 (_attn_kernel) "
                "and :280 (_attn_kernel_t)", attn_recs,
-               {"serving": launches["attention_fwd"], "training": train_launches["attention_fwd"]}),
+               {"serving": launches["attention_fwd"], "training": train_launches["attention_fwd"],
+                "serving_circuit": circuit["serving"], "training_circuit": circuit["training"][0],
+                "serving_pendulum": pendulum["serving"],
+                "training_pendulum": pendulum["training"][0]}),
         record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
                "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
-               {"training": train_launches["attention_bwd"]}),
+               {"training": train_launches["attention_bwd"],
+                "training_circuit": circuit["training"][2],
+                "training_pendulum": pendulum["training"][2]}),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)

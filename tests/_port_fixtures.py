@@ -26,6 +26,19 @@ def cuda_device():
     return "cuda"
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module: at these tiny sizes the
+    threads cost more than they give, the more so while the suite's workers
+    share the cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_kwargs(**overrides):
     """28px, 32 channels, 1 res block, 2 heads, attention at ds=2 (T=196)."""
     base = dict(
@@ -79,9 +92,11 @@ def flax_variables(jax_cfg, seed: int = 0, std: float = 0.05):
     x = jnp.zeros((1, s, s, jax_cfg.in_channels), jnp.float32)
     t = jnp.zeros((1,), jnp.int32)
     y = jnp.zeros((1,), jnp.int32) if jax_cfg.class_cond else None
+    # the context is the dataset's label vector, which sizes c_dense1
+    c = jnp.zeros((1, len(jax_cfg.label_scale)), jnp.float32) if jax_cfg.context_cond else None
     key = jax.random.PRNGKey(0)
     rngs = {"params": key, "reparam": key, "cfmask": key, "dropout": key}
-    shapes = jax.eval_shape(lambda: model.init(rngs, x, t, y=y, x_start=x))
+    shapes = jax.eval_shape(lambda: model.init(rngs, x, t, y=y, c=c, x_start=x))
     shapes = jax.tree_util.tree_map(lambda a: a, dict(shapes))
     tree = {k: _plain_dict(v) for k, v in shapes.items()}
     return model, _fill(tree, np.random.RandomState(seed), std)

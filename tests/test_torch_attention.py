@@ -31,7 +31,8 @@ from causaldiffae_torch.ops import attention as ops
 B, H = 2, 2
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 F32_TOL = dict(atol=2e-4, rtol=1e-3)
-SHAPES = [(T, d) for T in (16, 49, 64) for d in (16, 32, 64)]
+SHAPES = [(T, d) for T in (16, 49, 64) for d in (16, 32, 64)] + [
+    (16, 128), (64, 128), (144, 128), (256, 64)]  # the circuit's and the pendulum's widths
 EINSUM_SHAPES = [(16, 16), (49, 32), (64, 64)]
 
 

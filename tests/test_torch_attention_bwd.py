@@ -4,7 +4,8 @@
   tensors (where the wrappers run the plain versions) against ``jax.vjp`` of
   the Pallas entries ``fused_qkv_attention`` (K2 is its VJP) and
   ``fused_qkv_attention_t`` (K4) in interpret mode, the JAX package's own CPU
-  route, at T in {16, 49, 64}, d in {32, 64}, fp32 and bf16;
+  route, at T in {16, 49, 64}, d in {32, 64}, and at the circuit's and the
+  pendulum's (T, d) = (16 | 64 | 144, 128) and (256, 64), fp32 and bf16;
 - the plain backward and its fp64 form ``attention_bwd_exact`` against torch
   autograd through the einsum path ``qkv_attention`` in fp32, and the bf16
   routing of a block's gradient.
@@ -33,7 +34,8 @@ from causaldiffae_torch.ops import attention as ops
 B, H = 2, 2
 F32_TOL = dict(atol=2e-4, rtol=1e-3)
 BF16_ATOL, BF16_RTOL = 1e-4, 1.6e-2
-SHAPES = [(T, d) for T in (16, 49, 64) for d in (32, 64)]
+SHAPES = [(T, d) for T in (16, 49, 64) for d in (32, 64)] + [
+    (16, 128), (64, 128), (144, 128), (256, 64)]  # the circuit's and the pendulum's widths
 
 
 def _inputs(T, d, seed):

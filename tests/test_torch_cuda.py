@@ -39,9 +39,12 @@ def _qkv(b, T, h, d, device, seed=0, std=1.0):
     return (std * torch.randn(b, T, 3 * h * d, generator=g, device=device)).to(torch.bfloat16)
 
 
+# the circuit's and the pendulum's training shapes (T=256 d=64; d=128 at T=64, 16, 144)
+OTHER_PRESET_SHAPES = [(16, 256, 4, 64), (16, 64, 4, 128), (16, 16, 4, 128), (32, 144, 4, 128)]
 BWD_SHAPES = [(16, 784, 4, 32), (16, 49, 4, 64), (3, 100, 2, 64), (2, 77, 2, 128),
               # tails: the tensor maps' zero fill and the batch boundary
-              (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32), (3, 100, 2, 128)]
+              (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32), (3, 100, 2, 128),
+              *OTHER_PRESET_SHAPES]
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -49,6 +52,7 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 @pytest.mark.parametrize("b,T,h,d", [
     (16, 784, 4, 32), (16, 49, 4, 64),          # the main path's shapes
     (3, 100, 2, 64), (2, 77, 2, 128), (1, 1, 1, 32), (2, 64, 3, 32), (2, 65, 2, 128),
+    *OTHER_PRESET_SHAPES,
 ])
 def test_attention_kernel_matches_plain(cuda_device, b, T, h, d):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,7 +69,7 @@ def test_attention_kernel_matches_plain(cuda_device, b, T, h, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,T,h,d", [
     (16, 784, 4, 32), (16, 49, 4, 64), (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32),
-    (3, 100, 2, 128),
+    (3, 100, 2, 128), *OTHER_PRESET_SHAPES,
 ])
 def test_attention_kernel_lse_matches_plain(cuda_device, b, T, h, d):
     qkv = _qkv(b, T, h, d, cuda_device, seed=2, std=2 ** 0.5)

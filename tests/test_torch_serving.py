@@ -7,7 +7,9 @@ against the JAX package's.
 - end to end: ``make_counterfactual_fn`` (pre and post intervention) on a
   tiny CausalUNet against the JAX function itself, with the JAX function's
   own ``r_noise``/``r_rep`` draws rebuilt from its ``rng`` and handed over;
-- the serve CLI on the CPU.
+- the serve CLI on the CPU: the requests and answers of every preset
+  family (class-conditional, representation-only, context-conditional),
+  ``--input`` files, and answers from a train CLI checkpoint.
 
 Tolerances: fp32 atol 2e-4, rtol 1e-3 unless stated.
 """
@@ -21,7 +23,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _port_fixtures import configs, flax_variables, port_model
+from _port_fixtures import (configs, flax_variables, one_torch_thread,  # noqa: F401
+                            port_model)
 from causaldiffae_tpu.diffusion import create_diffusion as jax_create_diffusion
 from causaldiffae_tpu.diffusion import sampling as jax_sampling
 from causaldiffae_tpu.evals.counterfactual import make_counterfactual_fn as jax_make_cf
@@ -32,6 +35,7 @@ from causaldiffae_torch.evals.counterfactual import make_counterfactual_fn
 from causaldiffae_torch.ops.attention import attention_fwd
 
 F32_TOL = dict(atol=2e-4, rtol=1e-3)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("schedule,steps,respacing", [
@@ -209,3 +213,119 @@ def test_serve_rejects_bad_arguments():
                           "--sample_steps", "5"])
     with pytest.raises(SystemExit):
         serve.parse_args(["--value", "1"])                            # no requests
+
+
+def _tiny_preset(name):
+    """The preset at a tiny width (and 32x32 for the 96- and 128-pixel ones)."""
+    from causaldiffae_torch.config import get_config
+
+    cfg = get_config(name)
+    return cfg.replace(num_channels=32, num_res_blocks=1, num_heads=2, rep_dim=32,
+                       image_size=28 if cfg.image_size == 28 else 32, diffusion_steps=100,
+                       eval_timestep_respacing="3", abduction_t=2)
+
+
+@pytest.mark.parametrize("preset,keys", [
+    ("morphomnist_causaldae", {"x", "y"}),   # class-conditional, with a representation
+    ("pendulum_causaldae", {"x"}),           # representation only
+    ("circuit_diffae", {"x"}),               # representation without a causal graph
+    ("circuit_conditional", {"x", "c"}),     # context-conditional
+    ("morphomnist_conditional", {"x", "y", "c"}),
+])
+def test_serve_cli_serves_every_preset_family(preset, keys, monkeypatch, capsys):
+    """``serve --preset <p> --synthetic 16 --value 1 --device cpu``: requests
+    carry what the preset conditions on, and every family answers."""
+    cfg = _tiny_preset(preset)
+    req = serve.synthetic_requests(cfg, 16, seed=3)
+    assert set(req) == keys and req["x"].shape == (16, cfg.image_size, cfg.image_size,
+                                                   cfg.in_channels)
+    if "c" in keys:
+        from causaldiffae_torch.data import synthetic_dataset
+
+        np.testing.assert_array_equal(req["c"], synthetic_dataset(cfg.dataset, 16, seed=3)["c"])
+    monkeypatch.setattr(serve, "get_config", lambda name: cfg)
+    records = serve.main(["--preset", preset, "--synthetic", "16", "--value", "1",
+                          "--device", "cpu", "--intervene_var", "1"])
+    assert len(records) == 1 and records[0]["size"] == 16 and records[0]["finite"]
+    assert records[0]["unet_calls"] == 3
+    assert [json.loads(s) for s in capsys.readouterr().out.strip().splitlines()] == records
+
+
+def test_context_counterfactual_edits_the_context(monkeypatch):
+    """A context model's do(var = value) regenerates from c with column var
+    set, and the answer depends on the value."""
+    cfg = _tiny_preset("circuit_conditional")
+    model = serve.build_model(cfg, "", 0, "cpu")
+    from causaldiffae_torch.utils.weights import fill_normal_
+
+    fill_normal_(model, torch.Generator().manual_seed(1), std=0.05)
+    req = serve.synthetic_requests(cfg, 2, seed=0)
+    run = lambda value: next(serve.serve(cfg, model, req, intervene_var=2, value=value,
+                                         batch=2, device="cpu"))["samples"]
+    assert not np.array_equal(run(0.0), run(1.0))
+    seen = []
+    monkeypatch.setattr(model, "denoise", lambda x, t, y=None, c=None, z=None:
+                        seen.append(c.clone()) or torch.zeros_like(x))
+    run(0.25)
+    want = torch.from_numpy(req["c"]).clone()
+    want[:, 2] = 0.25
+    assert len(seen) == 3 and all(torch.equal(c, want) for c in seen)  # 3 chain steps
+
+
+def test_load_requests_takes_what_the_preset_needs(tmp_path):
+    from causaldiffae_torch.config import get_config
+
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    y, c = np.arange(3), rng.rand(3, 4).astype(np.float32)
+    np.savez(tmp_path / "all.npz", x=x, y=y, c=c)
+    np.savez(tmp_path / "x_only.npz", x=x)
+    np.savez(tmp_path / "short_c.npz", x=x, c=c[:2])
+    got = serve.load_requests(get_config("circuit_causaldae"), str(tmp_path / "all.npz"))
+    assert set(got) == {"x"}                                          # y and c ignored
+    got = serve.load_requests(get_config("circuit_conditional"), str(tmp_path / "all.npz"))
+    assert set(got) == {"x", "c"}
+    with pytest.raises(SystemExit, match=r"missing \['c'\]"):
+        serve.load_requests(get_config("circuit_conditional"), str(tmp_path / "x_only.npz"))
+    with pytest.raises(SystemExit, match=r"missing \['y'\]"):
+        serve.load_requests(get_config("morphomnist_causaldae"), str(tmp_path / "x_only.npz"))
+    with pytest.raises(SystemExit, match="length"):
+        serve.load_requests(get_config("circuit_conditional"), str(tmp_path / "short_c.npz"))
+
+
+def test_serve_cli_answers_from_a_checkpoint(tmp_path, monkeypatch, capsys):
+    """The serve CLI loads what the train CLI saved, with the config it was
+    trained with (here the overrides --ema_rate and --predict_xstart): with
+    --use_ema that config's first EMA rate's weights, else the raw ones, and
+    the BatchNorm buffers."""
+    from causaldiffae_torch import train
+    from causaldiffae_torch.training import CheckpointManager
+
+    cfg = _tiny_preset("pendulum_causaldae").replace(batch_size=2)
+    monkeypatch.setattr(train, "get_config", lambda name: cfg)
+    ck = tmp_path / "ck"
+    state, _ = train.main(["--preset", "pendulum_causaldae", "--synthetic", "--device", "cpu",
+                           "--total_steps", "2", "--ckpt_dir", str(ck), "--ema_rate", "0.5",
+                           "--predict_xstart", "true"])
+    saved = CheckpointManager(str(ck)).load()
+    trained = cfg.replace(ema_rate="0.5", predict_xstart=True, total_steps=2)
+    for use_ema, weights in (("true", saved["ema"]["0.5"]), ("false", saved["model"])):
+        got_cfg, model, step = serve.load_checkpoint(str(ck), use_ema == "true", "cpu")
+        assert got_cfg == trained and step == 2
+        sd = model.state_dict()
+        assert all(torch.equal(sd[k], v) for k, v in weights.items())
+        assert all(torch.equal(sd[k], v) for k, v in saved["model"].items() if "running" in k)
+        records = serve.main(["--ckpt_dir", str(ck), "--use_ema", use_ema, "--synthetic", "2",
+                              "--value", "0.5", "--device", "cpu"])
+        assert records[0]["finite"] and records[0]["unet_calls"] == 3
+    assert not all(torch.equal(saved["ema"]["0.5"][k], saved["model"][k])
+                   for k in saved["ema"]["0.5"])
+    with pytest.raises(SystemExit, match="trained as pendulum_causaldae"):
+        serve.main(["--preset", "circuit_causaldae", "--ckpt_dir", str(ck), "--synthetic", "2",
+                    "--value", "1", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main(["--ckpt_dir", str(tmp_path / "none"), "--synthetic", "2", "--value", "1",
+                    "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--ckpt_dir", str(ck), "--init_from", "w.npz", "--synthetic", "2",
+                          "--value", "1"])

@@ -18,6 +18,7 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: fp32 atol 2e-4, rtol 1e-3; the bf16 check states its own bound.
 """
 
+import csv
 import json
 
 import numpy as np
@@ -306,8 +307,9 @@ def test_synthetic_data_matches_jax():
 
 def test_train_cli_on_cpu(tmp_path, monkeypatch, capsys):
     """``python -m causaldiffae_torch.train --device cpu`` on a tiny preset for
-    2 steps, from flax weights in an .npz: two finite JSON lines, no kernel
-    launches (CPU tensors take the plain versions)."""
+    2 steps, from flax weights in an .npz: two finite JSON lines (each
+    logged one interval late), the same rows in progress.csv, a checkpoint
+    at the end, no kernel launches (CPU tensors take the plain versions)."""
     from causaldiffae_torch import train
     from causaldiffae_torch.ops import attention as ops
     from causaldiffae_torch.utils.weights import flatten_variables
@@ -319,13 +321,18 @@ def test_train_cli_on_cpu(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(train, "get_config", lambda name: port_cfg)
     launches = ops.attention_fwd.launches, ops.attention_bwd.launches
     state, records = train.main(["--total_steps", "2", "--log_interval", "1", "--device", "cpu",
-                                 "--init_from", str(npz)])
+                                 "--init_from", str(npz), "--logdir", str(tmp_path / "log")])
     lines = [json.loads(s) for s in capsys.readouterr().out.strip().splitlines()]
     assert lines == records and [r["step"] for r in lines] == [1, 2] and state.step == 2
     for r in lines:
         assert all(np.isfinite(r[k]) for k in ("loss", "mse", "kld_rep", "grad_norm",
-                                                "step_time_s", "samples_per_s"))
+                                                "step_time_s", "samples_per_sec"))
         assert r["step_skipped"] == 0.0
+    with open(tmp_path / "log" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [float(r["step"]) for r in rows] == [1.0, 2.0]
+    assert [float(r["loss"]) for r in rows] == [r["loss"] for r in records]
+    assert (tmp_path / "log" / "checkpoints" / "tiny" / "step_2.pt").exists()
     assert (ops.attention_fwd.launches, ops.attention_bwd.launches) == launches
     with pytest.raises(SystemExit):
         train.parse_args(["--total_steps", "0"])
