@@ -37,7 +37,7 @@ import numpy as np
 from ..config import DATA_SCALES
 
 __all__ = ["load_idx", "save_idx", "load_morphomnist", "load_pendulum",
-           "load_circuit", "load_image_folder", "batch_iterator", "load_data"]
+           "load_circuit", "load_image_folder", "batch_iterator", "load_data", "load_split"]
 
 
 # --------------------------------------------------------------------- #
@@ -213,3 +213,14 @@ def load_data(*, data_dir: str, batch_size: int, image_size: int,
     else:
         data = load_image_folder(data_dir, image_size, class_cond=class_cond)
     return batch_iterator(data, batch_size, seed=seed)
+
+
+def load_split(dataset: str, data_dir: str, split: str) -> Dict[str, np.ndarray]:
+    """The ``split`` ('train' or 'test') of a real dataset, as the eval CLIs read it."""
+    if dataset == "morphomnist":
+        return load_morphomnist(data_dir, train=split == "train")
+    if dataset == "pendulum":
+        return load_pendulum(data_dir, split=split)
+    if dataset == "circuit":
+        return load_circuit(data_dir, split=split)
+    raise ValueError(f"no {split} split loader for dataset {dataset!r}")

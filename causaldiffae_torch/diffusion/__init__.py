@@ -1,8 +1,9 @@
-"""Diffusion process, schedules and sampling chains (serving subset)."""
+"""Diffusion process, schedules, sampling chains and the VLB sweep."""
 
 from .process import GaussianDiffusion, create_diffusion
 from .respace import respace_schedule, space_timesteps
 from .sampling import (
+    calc_bpd_loop,
     ddim_reverse_loop,
     ddim_sample_loop,
     dpm_solver_pp_loop,
@@ -15,6 +16,7 @@ __all__ = [
     "create_diffusion",
     "respace_schedule",
     "space_timesteps",
+    "calc_bpd_loop",
     "ddim_reverse_loop",
     "ddim_sample_loop",
     "dpm_solver_pp_loop",

@@ -1,10 +1,9 @@
 """Sampling chains: Python loops over the single reverse steps.
 
-Port of ``causaldiffae_tpu/diffusion/sampling.py:36-250``. The JAX package
-runs each chain as one ``lax.scan``; here each chain is a Python loop of
-eager model calls. The per-step timestep is a device tensor built once per
-step, so the loop does not wait on the device. ``calc_bpd_loop`` belongs to
-the training/NLL slice and is not here.
+Port of ``causaldiffae_tpu/diffusion/sampling.py:36-295``. The JAX package
+runs each chain (and the VLB sweep) as one ``lax.scan``; here each is a
+Python loop of eager model calls. The per-step timestep is a device tensor
+built once per step, so the loop does not wait on the device.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ __all__ = [
     "ddim_sample_loop",
     "ddim_reverse_loop",
     "dpm_solver_pp_loop",
+    "calc_bpd_loop",
 ]
 
 
@@ -133,3 +133,33 @@ def dpm_solver_pp_loop(diffusion: GaussianDiffusion, model_fn, noise: torch.Tens
         x = float(sratio[i]) * x - float(a_next[i]) * float(phi[i]) * d
         x0_prev = x0
     return x
+
+
+def calc_bpd_loop(diffusion: GaussianDiffusion, model_fn, x_start: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, *, clip_denoised: bool = True,
+                  noise: Optional[torch.Tensor] = None) -> dict:
+    """The full per-timestep VLB sweep in bits/dim.
+
+    For every t of the (non-respaced) process: ``x_t = q_sample(x_0, t,
+    eps)``, the VLB term, and the x0 and eps MSEs per sample. ``noise``
+    ``[T, B, ...]`` gives eps for each t (ascending); without it each eps is
+    drawn from ``generator``. Returns ascending-t ``[N, T]`` arrays ``vb``,
+    ``xstart_mse`` and ``mse``, ``prior_bpd`` ``[N]`` and ``total_bpd`` =
+    ``vb.sum(1) + prior_bpd``, as ``causaldiffae_tpu/diffusion/sampling.py:253-295``.
+    """
+    B = x_start.shape[0]
+    vb, xstart_mse, mse = [], [], []
+    for i in range(diffusion.num_timesteps):
+        t = _full_t(i, B, x_start.device)
+        eps = noise[i] if noise is not None else torch.randn(
+            x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+        x_t = diffusion.q_sample(x_start, t, eps)
+        out = diffusion.vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised=clip_denoised)
+        eps_pred = diffusion.predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+        vb.append(out["output"])
+        xstart_mse.append(((out["pred_xstart"] - x_start) ** 2).reshape(B, -1).mean(-1))
+        mse.append(((eps_pred - eps) ** 2).reshape(B, -1).mean(-1))
+    vb = torch.stack(vb, dim=1)
+    prior_bpd = diffusion.prior_bpd(x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
+            "xstart_mse": torch.stack(xstart_mse, dim=1), "mse": torch.stack(mse, dim=1)}

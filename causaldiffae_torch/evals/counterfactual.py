@@ -168,12 +168,13 @@ def make_prior_sample_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *
                          use_ddim: bool = False, sampler: Optional[str] = None,
                          sample_steps: Optional[int] = None):
     """Prior sampling, z ~ N(0, I) and x_T ~ N(0, I): ``fn(shape, cond,
-    generator=None, *, z=None, x_T=None, device="cuda") -> samples``."""
+    generator=None, *, z=None, x_T=None, device="cuda") -> samples``. A model
+    without a representation (``rep_cond`` false) takes no z."""
     loop = resolve_sampler(use_ddim, sampler, sample_steps)
 
     @torch.inference_mode()
     def fn(shape, cond, generator=None, *, z=None, x_T=None, device="cuda"):
-        if z is None:
+        if z is None and cfg.rep_cond:
             z = torch.randn((shape[0], cfg.rep_dim), generator=generator, device=device)
         if x_T is None:
             x_T = torch.randn(shape, generator=generator, device=device)

@@ -1,12 +1,13 @@
-"""Causal semantic encoder.
+"""Causal semantic encoder and the anti-causal probe.
 
-Port of ``causaldiffae_tpu/models/encoder.py:42-82``: a Conv(k3, s2, p1) ->
+Port of ``causaldiffae_tpu/models/encoder.py:42-104``: a Conv(k3, s2, p1) ->
 BatchNorm -> LeakyReLU stack, flattened, and two heads,
-``mu = fc_mu(h)`` and ``var = softplus(fc_var(h)) + 1e-8``. The convs run in
+``mu = fc_mu(h)`` and ``var = softplus(fc_var(h)) + 1e-8``, or for the
+probe one scalar head ``fc``. The convs run in
 the compute dtype, BatchNorm and the heads in fp32. The flatten is C-major,
 as torch's; weights carried from flax already hold that permutation
 (``utils/weights.py``). Attribute names follow the reference keys
-(``encoder.{i}.{0,1}``, ``fc_mu``, ``fc_var``).
+(``encoder.{i}.{0,1}``, ``fc_mu``, ``fc_var``, ``fc``).
 
 BatchNorm follows flax's semantics (the JAX package is the reference), not
 torch's: in eval mode it normalises with the running statistics; in train
@@ -58,12 +59,13 @@ def default_hidden_dims(num_vars: int) -> Tuple[int, ...]:
     raise ValueError(f"no default encoder hidden dims for num_vars={num_vars}")
 
 
-class GaussianConvEncoder(nn.Module):
-    """Encoder q(u | x0) returning (mu, var)."""
+class ConvTrunk(nn.Module):
+    """The Conv-BN-LeakyReLU stride-2 stack under ``encoder.{i}.{0,1}``
+    (``causaldiffae_tpu/models/encoder.py:42-57``); :meth:`trunk` returns the
+    last stage's activations, NCHW, fp32."""
 
-    def __init__(self, in_channels: int, image_size: int, latent_dim: int, num_vars: int = 4,
-                 hidden_dims: Optional[Tuple[int, ...]] = None,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, image_size: int, num_vars: int,
+                 hidden_dims: Optional[Tuple[int, ...]], dtype: torch.dtype):
         super().__init__()
         dims = hidden_dims or default_hidden_dims(num_vars)
         self.dtype = dtype
@@ -77,12 +79,11 @@ class GaussianConvEncoder(nn.Module):
             ))
             ch, spatial = h_dim, (spatial + 1) // 2
         self.encoder = nn.Sequential(*layers)
-        self.fc_mu = nn.Linear(ch * spatial * spatial, latent_dim)
-        self.fc_var = nn.Linear(ch * spatial * spatial, latent_dim)
+        self.flat_dim = ch * spatial * spatial
 
-    def encode(self, x: torch.Tensor):
-        """x: NCHW -> (mu, var), both fp32. In train mode BatchNorm uses the
-        batch's statistics and updates its running buffers in place."""
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NCHW. In train mode BatchNorm uses the batch's statistics and
+        updates its running buffers in place."""
         h = x
         for block in self.encoder:
             bn = block[1]
@@ -93,9 +94,48 @@ class GaussianConvEncoder(nn.Module):
                 h = F.batch_norm(h.float(), bn.running_mean, bn.running_var, bn.weight,
                                  bn.bias, training=False, eps=bn.eps)
             h = F.leaky_relu(h, 0.01)
-        h = h.flatten(1)
+        return h
+
+
+class GaussianConvEncoder(ConvTrunk):
+    """Encoder q(u | x0) returning (mu, var)."""
+
+    def __init__(self, in_channels: int, image_size: int, latent_dim: int, num_vars: int = 4,
+                 hidden_dims: Optional[Tuple[int, ...]] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, image_size, num_vars, hidden_dims, dtype)
+        self.fc_mu = nn.Linear(self.flat_dim, latent_dim)
+        self.fc_var = nn.Linear(self.flat_dim, latent_dim)
+
+    def encode(self, x: torch.Tensor):
+        """x: NCHW -> (mu, var), both fp32."""
+        h = self.trunk(x).flatten(1)
         mu = self.fc_mu(h)
         var = F.softplus(self.fc_var(h)) + 1e-8
         return mu, var
 
     forward = encode
+
+
+class GaussianConvEncoderClf(ConvTrunk):
+    """Anti-causal probe: the trunk and a scalar regression head ``fc``
+    (``causaldiffae_tpu/models/encoder.py:85-104``), fp32, under the
+    reference's keys, so a reference ``classifier_<factor>_best.pth`` loads
+    once its dead ``fc_mu``/``fc_var`` heads are dropped. Images are NHWC,
+    as the JAX module takes them."""
+
+    def __init__(self, in_channels: int, image_size: int, num_vars: int = 4,
+                 hidden_dims: Optional[Tuple[int, ...]] = None):
+        super().__init__(in_channels, image_size, num_vars, hidden_dims, torch.float32)
+        self.fc = nn.Linear(self.flat_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> [B, 1]; ``fc`` reads the C-major flatten."""
+        return self.fc(self.trunk(x.permute(0, 3, 1, 2)).flatten(1))
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk's activations flattened in the JAX module's (H, W, C)
+        order, so that features compare element by element with
+        ``GaussianConvEncoderClf.features`` there (FID's feature space when
+        no Inception weights are given)."""
+        return self.trunk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).flatten(1)

@@ -5,7 +5,8 @@ baselines logger): ``logkv``/``logkv_mean``/``dumpkvs`` with
 Human/CSV/JSON/TensorBoard writers selected by env or argument,
 ``profile_kv`` wall-time scopes, and a global default logger. Differences:
 the default directory is under ``tempfile.gettempdir()`` (which honours
-``TMPDIR``); a logger with no output formats makes no directory, and the
+``TMPDIR``); a logger with no output formats, or only ``stdout``/``stderr``
+(the latter a format of the port's), makes no directory, and the
 logger used before any ``configure`` is one (the train loop prints its own
 JSON line per record); and a CSV file that already has rows (a resumed run)
 keeps its header, so the new rows line up with the old ones.
@@ -53,7 +54,8 @@ class HumanOutputFormat(KVWriter):
     """Boxed key | value table (reference `logger.py:36-80`)."""
 
     def __init__(self, filename_or_file):
-        self._file = None  # None = late-bind to the CURRENT sys.stdout
+        self._file = None  # None = late-bind to the CURRENT sys.stdout / sys.stderr
+        self._stream = "stderr" if filename_or_file is sys.stderr else "stdout"
         if isinstance(filename_or_file, str):
             self._file = open(filename_or_file, "at")
             self.own_file = True
@@ -62,13 +64,13 @@ class HumanOutputFormat(KVWriter):
             # configure() time: under pytest's capture, sys.stdout is a
             # per-test file that gets CLOSED at test end, and a module-global
             # Logger holding it poisons every later log() call.
-            if filename_or_file is not sys.stdout:
+            if filename_or_file not in (sys.stdout, sys.stderr):
                 self._file = filename_or_file
             self.own_file = False
 
     @property
     def file(self):
-        return sys.stdout if self._file is None else self._file
+        return getattr(sys, self._stream) if self._file is None else self._file
 
     def writekvs(self, kvs):
         key2str = {}
@@ -146,10 +148,13 @@ class CSVOutputFormat(KVWriter):
         self.file.close()
 
 
-def make_output_format(fmt: str, ev_dir: str, log_suffix: str = "") -> KVWriter:
+STREAMS = ("stdout", "stderr")  # formats that write no file
+
+
+def make_output_format(fmt: str, ev_dir: Optional[str], log_suffix: str = "") -> KVWriter:
+    if fmt in STREAMS:
+        return HumanOutputFormat(getattr(sys, fmt))
     os.makedirs(ev_dir, exist_ok=True)
-    if fmt == "stdout":
-        return HumanOutputFormat(sys.stdout)
     if fmt == "log":
         return HumanOutputFormat(osp.join(ev_dir, f"log{log_suffix}.txt"))
     if fmt == "json":
@@ -214,7 +219,7 @@ def configure(dir: Optional[str] = None, format_strs: Optional[List[str]] = None
     format_strs = [f for f in format_strs if f]
     if dir is None:
         dir = os.environ.get("OPENAI_LOGDIR")
-    if dir is None and format_strs:
+    if dir is None and any(f not in STREAMS for f in format_strs):
         dir = osp.join(
             tempfile.gettempdir(),
             "causaldiffae-" + datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S-%f"),

@@ -23,7 +23,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "unet_walk", "flatten_variables",
+__all__ = ["state_dict_from_flax", "classifier_state_dict_from_flax", "unet_walk",
+           "flatten_variables",
            "unflatten_variables", "load_weights", "fill_normal_"]
 
 
@@ -133,21 +134,10 @@ def state_dict_from_flax(cfg, variables: Mapping[str, Any]) -> Dict[str, torch.T
         _linear(sd, "c_emb.2", params["c_dense2"]["Dense_0"])
 
     if "rep_emb" in params:
-        trunk_p = params["rep_emb"]["trunk"]
-        trunk_s = batch_stats["rep_emb"]["trunk"]
-        n_convs = sum(1 for k in trunk_p if k.startswith("Conv3x3_"))
-        ch = None
-        for i in range(n_convs):
-            _conv2d(sd, f"rep_emb.encoder.{i}.0", trunk_p[f"Conv3x3_{i}"]["Conv_0"])
-            _norm(sd, f"rep_emb.encoder.{i}.1", trunk_p[f"BatchNorm_{i}"])
-            s = trunk_s[f"BatchNorm_{i}"]
-            sd[f"rep_emb.encoder.{i}.1.running_mean"] = _np(s["mean"])
-            sd[f"rep_emb.encoder.{i}.1.running_var"] = _np(s["var"])
-            sd[f"rep_emb.encoder.{i}.1.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
-            ch = sd[f"rep_emb.encoder.{i}.0.weight"].shape[0]
-        spatial = cfg.image_size
-        for _ in range(n_convs):
-            spatial = (spatial + 1) // 2
+        ch = _conv_trunk(sd, "rep_emb.encoder", params["rep_emb"]["trunk"],
+                         batch_stats["rep_emb"]["trunk"])
+        flat = _np(params["rep_emb"]["fc_mu"]["Dense_0"]["kernel"]).shape[0]
+        spatial = int(round((flat // ch) ** 0.5))
         _flatten_perm_linear(sd, "rep_emb.fc_mu", params["rep_emb"]["fc_mu"]["Dense_0"],
                              ch, spatial)
         _flatten_perm_linear(sd, "rep_emb.fc_var", params["rep_emb"]["fc_var"]["Dense_0"],
@@ -185,6 +175,37 @@ def state_dict_from_flax(cfg, variables: Mapping[str, Any]) -> Dict[str, torch.T
     _norm(sd, "out.0", params["out_norm"])
     _conv2d(sd, "out.2", params["out_conv"]["Conv_0"])
     # copy: transposes are views, and torch wants writable, owned buffers
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def _conv_trunk(sd, prefix, trunk_p, trunk_s) -> int:
+    """A flax ``ConvTrunk`` under ``{prefix}.{i}.{0,1}``; returns its last width."""
+    n_convs = sum(1 for k in trunk_p if k.startswith("Conv3x3_"))
+    for i in range(n_convs):
+        _conv2d(sd, f"{prefix}.{i}.0", trunk_p[f"Conv3x3_{i}"]["Conv_0"])
+        _norm(sd, f"{prefix}.{i}.1", trunk_p[f"BatchNorm_{i}"])
+        s = trunk_s[f"BatchNorm_{i}"]
+        sd[f"{prefix}.{i}.1.running_mean"] = _np(s["mean"])
+        sd[f"{prefix}.{i}.1.running_var"] = _np(s["var"])
+        sd[f"{prefix}.{i}.1.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+    return sd[f"{prefix}.{n_convs - 1}.0.weight"].shape[0]
+
+
+def classifier_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's probe ``state_dict`` (``models.encoder.GaussianConvEncoderClf``,
+    reference keys ``encoder.{i}.{0,1}`` and ``fc``) from the JAX package's
+    probe variables ``{"params", "batch_stats"}``, as ``ClassifierTrainer``
+    pickles them. The head's input width gives the trunk's final grid, so no
+    image size is needed."""
+    sd: Dict[str, np.ndarray] = {}
+    ch = _conv_trunk(sd, "encoder", variables["params"]["trunk"],
+                     variables["batch_stats"]["trunk"])
+    fc = variables["params"]["fc"]["Dense_0"]
+    flat = _np(fc["kernel"]).shape[0]
+    spatial = int(round((flat // ch) ** 0.5))
+    if spatial * spatial * ch != flat:
+        raise ValueError(f"probe head takes {flat} inputs, not a square grid of {ch} channels")
+    _flatten_perm_linear(sd, "fc", fc, ch, spatial)
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 

@@ -58,10 +58,30 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    UNet call and none writing lse;
 8. ``pendulum_causaldae`` at full width (96x96x4; only the middle block
    attends, T=144 d=128): the same, with 2 + 2 steps (one save, a resume)
-   and DPM++-25, 1 launch of each kind per step and 1 per UNet call.
+   and DPM++-25, 1 launch of each kind per step and 1 per UNet call; its
+   checkpoint is kept for phase 11;
+9. the effectiveness evaluation of ``morphomnist_causaldae``: 2 steps of
+   the train CLI and a checkpoint, then the ``counterfactual_test`` CLI on
+   it (DDIM-250, 32 samples in batches of 16, two probes trained in-process,
+   FID over the probe trunk) and ``rescore_counterfactuals`` on its saved
+   samples with the same probes: finite MAE, probe MSE and FID >= 0, samples
+   finite in [-1, 1], PNG grids with the right size, the rescore within 1e-5
+   (relative) of each MAE, and 8 forward launches per UNet call, none with
+   lse;
+10. the NLL sweep (``nll`` CLI, one batch of 8 through all 1000 steps, on
+   phase 9's checkpoint): total bpd finite and > 0, 8 launches per UNet
+   call; ``vb_terms_bpd`` on a handful of timesteps through the kernel, the
+   plain attention and fp64 attention on the same x_t (the kernel's no
+   farther from fp64 than 1.5x the plain's); then 16 prior samples through
+   the ``sample`` CLI with DPM++-25, finite and in [-1, 1];
+11. ``pendulum_causaldae``'s effectiveness evaluation on phase 8's
+   checkpoint with DPM++-25, 16 samples: four probes, one batch per
+   variable, the effect variables intervened on z_post; 1 launch per UNet
+   call.
 
-Prints the card line and one ``{"kernels": [...]}`` JSON line, and as its
-last line ``{"ok": true, "device": {...}}``. Any failed check raises.
+Each phase prints its wall time. Prints the card line and one
+``{"kernels": [...]}`` JSON line, and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises.
 
 Usage: python3 chip_smoke.py
 """
@@ -103,6 +123,8 @@ ATTN_SHAPES = [  # (B, T, heads, d): the serving path's two shapes first
     (16, 16, 4, 128),   # and the middle block at ds=32
     (16, 144, 4, 128),  # pendulum_causaldae's middle block, serving
     (32, 144, 4, 128),  # and training
+    (8, 784, 4, 32),    # morphomnist's NLL sweep at batch 8
+    (8, 49, 4, 64),
 ]
 BWD_SHAPES = [          # the training path's two shapes first
     (128, 784, 4, 32),
@@ -136,10 +158,27 @@ SCORE_STD = 2.0       # ... but qkv projections give attention scores this std
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
 # 1.98 GHz boost clock. Printed beside the bound, not part of it.
 PEAK_EXP = 16 * 132 * 1.98e9
+CLF_EPOCHS = 2        # probe epochs in the evaluation phases (the CLI's default is 100)
+RESCORE_RTOL = 1e-5
 
 
-def phase(name):
-    print(f"\n=== {name} ===", flush=True)
+class PhaseClock:
+    """Prints each phase's header and, when the next one starts, its wall time
+    and the peak device memory since the phase's last reset of the peak (a
+    phase that resets it before its main work reports that work's peak)."""
+
+    def __init__(self):
+        self.name, self.t0 = None, 0.0
+
+    def __call__(self, name=None):
+        if self.name is not None:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"--- phase {self.name.split('.')[0]}: {time.perf_counter() - self.t0:.1f} s "
+                  f"wall, peak device memory since the last reset {peak:.3f} GB", flush=True)
+        self.name, self.t0 = name, time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        if name is not None:
+            print(f"\n=== {name} ===", flush=True)
 
 
 def time_ms(fn, iters=20, reps=5):
@@ -575,11 +614,13 @@ def train_phase(cfg, ops, gen):
     return launches
 
 
-def cli_phase(name, ops, gen, *, steps, save_interval, sampler, sample_steps, intervene_var):
+def cli_phase(name, ops, gen, work, *, steps, save_interval, sampler, sample_steps,
+              intervene_var):
     """Phases 7 and 8 on preset ``name`` at full width: the gradient check,
     then the train CLI's ``main`` to step ``steps[0]`` and again to
     ``steps[1]`` (it must resume), then the serve CLI's ``main`` from the
-    checkpoint. Returns the kernels' launch counts by path."""
+    checkpoint; the files go under ``work``, which the caller removes.
+    Returns the kernels' launch counts by path and the checkpoint directory."""
     from causaldiffae_torch import serve, train
     from causaldiffae_torch.config import get_config
     from causaldiffae_torch.training import CheckpointManager
@@ -587,79 +628,265 @@ def cli_phase(name, ops, gen, *, steps, save_interval, sampler, sample_steps, in
     cfg = get_config(name)
     n = ATTN_PER_CALL[name]
     gradient_check(cfg, ops, gen, SEED + 4)
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix=f"smoke-{name}-", dir=os.path.join(REPO, "build"))
     ckpt, logdir = os.path.join(work, "ckpt"), os.path.join(work, "log")
     args = ["--preset", name, "--synthetic", "--save_interval", str(save_interval),
             "--log_interval", "1", "--ckpt_dir", ckpt, "--logdir", logdir]
-    try:
-        reset_counts(ops)  # the training path's count
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, first = train.main(args + ["--total_steps", str(steps[0])])
-        t_first = time.perf_counter() - t0
-        fwd, lse, bwd = counts(ops)
-        if (state.step, fwd, lse, bwd) != (steps[0], n * steps[0], n * steps[0], n * steps[0]):
-            raise AssertionError(f"{name}: train CLI to step {steps[0]} ended at step "
-                                 f"{state.step} with (forward, with lse, backward) launches "
-                                 f"{(fwd, lse, bwd)}, expected {n} each per step")
-        state, second = train.main(args + ["--total_steps", str(steps[1])])
-        train_counts = counts(ops)
-        peak_train = torch.cuda.max_memory_allocated() / 1e9
-        more = steps[1] - steps[0]
-        if (state.step, train_counts) != (steps[1], (fwd + n * more, lse + n * more,
-                                                     bwd + n * more)):
-            raise AssertionError(f"{name}: the resumed train CLI ended at step {state.step} with "
-                                 f"launches {train_counts}, expected {n} of each per step")
-        check_records(name, first + second, range(1, steps[1] + 1))  # resumed at steps[0]
-        saved = CheckpointManager(ckpt).all_steps()
-        on_interval = [k for k in range(save_interval, steps[1] + 1, save_interval)]
-        if saved != sorted(set(on_interval + list(steps)))[-3:]:
-            raise AssertionError(f"{name}: checkpoints at steps {saved}")
-        with open(os.path.join(logdir, "progress.csv")) as f:
-            rows = list(csv.DictReader(f))
-        if [int(float(r["step"])) for r in rows] != list(range(1, steps[1] + 1)):
-            raise AssertionError(f"{name}: progress.csv rows of steps {[r['step'] for r in rows]}")
-        recs = first + second
-        print(f"{name}: train CLI, batch {cfg.batch_size}, steps 1-{steps[0]}, then resumed at "
-              f"{steps[0]} to {steps[1]}; checkpoints {saved}; loss "
-              f"{[round(r['loss'], 4) for r in recs]}; grad norm "
-              f"{[round(r['grad_norm'], 3) for r in recs]}; step_time_s (stamped at dispatch, "
-              f"saves included) {[round(r['step_time_s'], 4) for r in recs]}; samples_per_sec "
-              f"{round(first[-1]['samples_per_sec'], 1)}, {round(second[-1]['samples_per_sec'], 1)}; "
-              f"first main() {t_first:.1f} s with the synthetic pool; launches (forward, with lse, "
-              f"backward) {train_counts}; peak memory {peak_train:.3f} GB", flush=True)
+    reset_counts(ops)  # the training path's count
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, first = train.main(args + ["--total_steps", str(steps[0])])
+    t_first = time.perf_counter() - t0
+    fwd, lse, bwd = counts(ops)
+    if (state.step, fwd, lse, bwd) != (steps[0], n * steps[0], n * steps[0], n * steps[0]):
+        raise AssertionError(f"{name}: train CLI to step {steps[0]} ended at step "
+                             f"{state.step} with (forward, with lse, backward) launches "
+                             f"{(fwd, lse, bwd)}, expected {n} each per step")
+    state, second = train.main(args + ["--total_steps", str(steps[1])])
+    train_counts = counts(ops)
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    more = steps[1] - steps[0]
+    if (state.step, train_counts) != (steps[1], (fwd + n * more, lse + n * more,
+                                                 bwd + n * more)):
+        raise AssertionError(f"{name}: the resumed train CLI ended at step {state.step} with "
+                             f"launches {train_counts}, expected {n} of each per step")
+    check_records(name, first + second, range(1, steps[1] + 1))  # resumed at steps[0]
+    saved = CheckpointManager(ckpt).all_steps()
+    on_interval = [k for k in range(save_interval, steps[1] + 1, save_interval)]
+    if saved != sorted(set(on_interval + list(steps)))[-3:]:
+        raise AssertionError(f"{name}: checkpoints at steps {saved}")
+    with open(os.path.join(logdir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if [int(float(r["step"])) for r in rows] != list(range(1, steps[1] + 1)):
+        raise AssertionError(f"{name}: progress.csv rows of steps {[r['step'] for r in rows]}")
+    recs = first + second
+    print(f"{name}: train CLI, batch {cfg.batch_size}, steps 1-{steps[0]}, then resumed at "
+          f"{steps[0]} to {steps[1]}; checkpoints {saved}; loss "
+          f"{[round(r['loss'], 4) for r in recs]}; grad norm "
+          f"{[round(r['grad_norm'], 3) for r in recs]}; step_time_s (stamped at dispatch, "
+          f"saves included) {[round(r['step_time_s'], 4) for r in recs]}; samples_per_sec "
+          f"{round(first[-1]['samples_per_sec'], 1)}, {round(second[-1]['samples_per_sec'], 1)}; "
+          f"first main() {t_first:.1f} s with the synthetic pool; launches (forward, with lse, "
+          f"backward) {train_counts}; peak memory {peak_train:.3f} GB", flush=True)
 
-        out = os.path.join(work, "answers.npz")
-        serve_args = ["--preset", name, "--ckpt_dir", ckpt, "--synthetic", "16", "--batch", "16",
-                      "--value", "1.0", "--intervene_var", str(intervene_var), "--sampler",
-                      sampler, "--out", out, "--seed", str(SEED)]
-        if sample_steps:
-            serve_args += ["--sample_steps", str(sample_steps)]
-        reset_counts(ops)  # the serving path's count
-        torch.cuda.reset_peak_memory_stats()
-        records = serve.main(serve_args)
-        fwd, lse, _ = counts(ops)
-        peak_serve = torch.cuda.max_memory_allocated() / 1e9
-        calls = sum(r["unet_calls"] for r in records)
-        with np.load(out) as z:
-            samples = z["samples"]
-        s = cfg.image_size
-        if not (samples.shape == (16, s, s, cfg.in_channels) and np.isfinite(samples).all()
-                and float(np.abs(samples).max()) <= 1.0 + 1e-6):
-            raise AssertionError(f"{name}: answers not finite, of shape {samples.shape} or "
-                                 "outside [-1, 1]")
-        if fwd != n * calls or lse:
-            raise AssertionError(f"{name}: {fwd} forward launches ({lse} with lse) for {calls} "
-                                 f"UNet calls, expected {n} per call and none with lse")
-        lat = records[0]["latency_s"]
-        print(f"{name}: serve CLI from step {steps[1]} (EMA weights), 16 requests, {sampler}: "
-              f"{calls} UNet calls, latency {lat:.3f} s ({1e3 * lat / calls:.2f} ms per UNet "
-              f"call, {16 / lat:.2f} images/s, first batch of the process), {fwd} forward "
-              f"launches, none with lse; peak memory {peak_serve:.3f} GB", flush=True)
+    out = os.path.join(work, "answers.npz")
+    serve_args = ["--preset", name, "--ckpt_dir", ckpt, "--synthetic", "16", "--batch", "16",
+                  "--value", "1.0", "--intervene_var", str(intervene_var), "--sampler",
+                  sampler, "--out", out, "--seed", str(SEED)]
+    if sample_steps:
+        serve_args += ["--sample_steps", str(sample_steps)]
+    reset_counts(ops)  # the serving path's count
+    torch.cuda.reset_peak_memory_stats()
+    records = serve.main(serve_args)
+    fwd, lse, _ = counts(ops)
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    calls = sum(r["unet_calls"] for r in records)
+    with np.load(out) as z:
+        samples = z["samples"]
+    s = cfg.image_size
+    if not (samples.shape == (16, s, s, cfg.in_channels) and np.isfinite(samples).all()
+            and float(np.abs(samples).max()) <= 1.0 + 1e-6):
+        raise AssertionError(f"{name}: answers not finite, of shape {samples.shape} or "
+                             "outside [-1, 1]")
+    if fwd != n * calls or lse:
+        raise AssertionError(f"{name}: {fwd} forward launches ({lse} with lse) for {calls} "
+                             f"UNet calls, expected {n} per call and none with lse")
+    lat = records[0]["latency_s"]
+    print(f"{name}: serve CLI from step {steps[1]} (EMA weights), 16 requests, {sampler}: "
+          f"{calls} UNet calls, latency {lat:.3f} s ({1e3 * lat / calls:.2f} ms per UNet "
+          f"call, {16 / lat:.2f} images/s, first batch of the process), {fwd} forward "
+          f"launches, none with lse; peak memory {peak_serve:.3f} GB", flush=True)
+    return {"training": train_counts, "serving": fwd}, ckpt
+
+
+@contextlib.contextmanager
+def count_unet_calls():
+    """Counts ``CausalUNet.denoise`` calls meanwhile (every chain step, every
+    VLB term); yields a one-element list."""
+    from causaldiffae_torch.models.unet import CausalUNet
+
+    original, calls = CausalUNet.denoise, [0]
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return original(self, *args, **kwargs)
+
+    CausalUNet.denoise = counted
+    try:
+        yield calls
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return {"training": train_counts, "serving": fwd}
+        CausalUNet.denoise = original
+
+
+def png_size(path):
+    """(width, height) from a PNG's signature and IHDR; raises on anything else."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG file")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def check_launches(what, ops, calls, per_call):
+    """The forward kernel ran ``per_call`` times per UNet call, none writing
+    lse, and the backward never; returns the forward launches."""
+    fwd, lse, bwd = counts(ops)
+    if (fwd, lse, bwd) != (per_call * calls, 0, 0):
+        raise AssertionError(f"{what}: (forward, with lse, backward) launches {(fwd, lse, bwd)} "
+                             f"for {calls} UNet calls, expected {per_call} forward per call")
+    return fwd
+
+
+def check_samples(what, path, shape, key="samples"):
+    """The images under ``key`` in ``path``: of ``shape``, finite, in [-1, 1]."""
+    with np.load(path) as z:
+        samples = z[key]
+    if not (samples.shape == shape and np.isfinite(samples).all()
+            and float(np.abs(samples).max()) <= 1.0 + 1e-6):
+        raise AssertionError(f"{what}: samples not finite, outside [-1, 1] or of shape "
+                             f"{samples.shape}, expected {shape}")
+
+
+def evaluation_phase(name, ops, ckpt, out, *, num_samples, sampler, sample_steps,
+                     compute_fid):
+    """The ``counterfactual_test`` CLI on the checkpoint in ``ckpt`` with
+    probes trained in-process, then ``rescore_counterfactuals`` with the same
+    probes; returns the forward kernel's launches in the evaluation."""
+    from causaldiffae_torch import counterfactual_test, rescore_counterfactuals
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.interventions import VAR_NAMES
+    from causaldiffae_torch.serve import unet_calls_per_chain
+
+    cfg = get_config(name)
+    names = VAR_NAMES[cfg.dataset]
+    bs = 16
+    args = ["--ckpt_dir", ckpt, "--synthetic", "--num_samples", str(num_samples), "--batch_size",
+            str(bs), "--clf_epochs", str(CLF_EPOCHS), "--out_dir", out, "--seed", str(SEED)]
+    if sampler:
+        args += ["--sampler", sampler, "--sample_steps", str(sample_steps)]
+    if compute_fid:
+        args += ["--compute_fid"]
+    reset_counts(ops)  # the evaluation path's count
+    t0 = time.perf_counter()
+    with count_unet_calls() as calls:
+        result = counterfactual_test.main(args)
+    seconds = time.perf_counter() - t0
+    chain = unet_calls_per_chain(cfg, create_diffusion(cfg, eval_mode=True), sampler or "ddim",
+                                 sample_steps)
+    n_batches = num_samples // bs
+    if calls[0] != chain * (1 + len(names) * n_batches):
+        raise AssertionError(f"{name}: {calls[0]} UNet calls, expected {chain} per chain for the "
+                             f"reconstruction and {len(names)} x {n_batches} do() batches")
+    fwd = check_launches(f"{name} evaluation", ops, calls[0], ATTN_PER_CALL[name])
+    keys = {f"{k}_{v}" for v in names for k in ("mae", "clf_val_mse")} | (
+        {"fid"} if compute_fid else set())
+    if set(result) != keys or not all(math.isfinite(v) for v in result.values()) \
+            or result.get("fid", 0.0) < 0:
+        raise AssertionError(f"{name}: evaluation result {result}, expected finite {sorted(keys)}"
+                             " and fid >= 0")
+    s = cfg.image_size
+    for v in names:
+        check_samples(f"{name} do({v})", os.path.join(out, f"samples_do_{v}.npz"),
+                      (num_samples, s, s, cfg.in_channels))
+        rows = -(-min(num_samples, 64) // 8)
+        if png_size(os.path.join(out, f"grid_do_{v}.png")) != (8 * s, rows * s):
+            raise AssertionError(f"{name}: grid_do_{v}.png has the wrong size")
+    if png_size(os.path.join(out, "reconstructions.png")) != (8 * s, 2 * s):
+        raise AssertionError(f"{name}: reconstructions.png has the wrong size")
+    t1 = time.perf_counter()
+    (rescored,) = rescore_counterfactuals.main(
+        ["--preset", name, "--classifier_dir", out, "--runs", out, "--num_samples",
+         str(num_samples), "--batch_size", str(bs), "--seed", str(SEED)])
+    rescore_s = time.perf_counter() - t1
+    worst = max(abs(rescored[f"mae_{v}"] - result[f"mae_{v}"]) / abs(result[f"mae_{v}"])
+                for v in names)
+    if worst > RESCORE_RTOL:
+        raise AssertionError(f"{name}: the rescore {rescored} does not reproduce {result}")
+    print(f"{name}: counterfactual_test {seconds:.2f} s ({CLF_EPOCHS}-epoch probes, "
+          f"{calls[0]} UNet calls, {1e3 * seconds / calls[0]:.2f} ms per UNet call including "
+          f"the probes, pools and files), {fwd} forward launches, none with lse; "
+          f"rescore {rescore_s:.3f} s, largest relative MAE difference {worst:.3e} "
+          f"(limit {RESCORE_RTOL}); result {json.dumps(result)}", flush=True)
+    return fwd
+
+
+def vb_route_check(cfg, ops, gen):
+    """``vb_terms_bpd`` at six timesteps (0, 1, T/100, T/10, T/2, T-1) on
+    the same x_t through the kernel,
+    the plain attention and fp64 attention (random weights with sharp
+    softmaxes): the kernel's terms no farther from fp64's (RMS) than 1.5x
+    the plain route's."""
+    from causaldiffae_torch.config import create_diffusion, create_model
+
+    diffusion = create_diffusion(cfg)
+    T = diffusion.num_timesteps
+    steps = sorted({0, 1, T // 100, T // 10, T // 2, T - 1})
+    model = create_model(cfg, device="cuda")
+    fill_weights_(model, SEED + 5)
+    B, s = 8, cfg.image_size
+    x = torch.rand(B, s, s, cfg.in_channels, generator=gen, device="cuda")
+    y = torch.arange(B, device="cuda") % 10
+    z = torch.randn(B, cfg.rep_dim, generator=gen, device="cuda")
+    noise = torch.randn(len(steps), B, s, s, cfg.in_channels, generator=gen, device="cuda")
+    model_fn = lambda xx, tt: model.denoise(xx, tt, y=y, z=z)
+
+    def terms():
+        out = []
+        for t_int, eps in zip(steps, noise):
+            t = torch.full((B,), t_int, dtype=torch.long, device="cuda")
+            x_t = diffusion.q_sample(x, t, eps)
+            out.append(diffusion.vb_terms_bpd(model_fn, x, x_t, t)["output"].double())
+        return torch.stack(out)
+
+    with torch.inference_mode():
+        vb_k = terms()
+        with route_attention(ops.attention_plain):
+            vb_p = terms()
+        with route_attention(lambda qkv, heads: exact_attention(ops, qkv, heads)[0].to(qkv.dtype)):
+            vb_x = terms()
+    d_k, d_p = rms(vb_k - vb_x), rms(vb_p - vb_x)
+    print(f"vb_terms_bpd at t {steps}, batch {B}: rms {rms(vb_x):.4e} bits/dim; rms "
+          f"distance from fp64 attention: kernel {d_k:.4e}, plain {d_p:.4e} (ratio "
+          f"{d_k / d_p:.3f}, limit 1.5)", flush=True)
+    if not bool(torch.isfinite(vb_k).all()) or d_k > 1.5 * d_p:
+        raise AssertionError("the VLB terms through the kernel are not finite or stand farther "
+                             "from fp64 attention's than the plain route's allows")
+
+
+def nll_and_sampling_phase(ops, gen, ckpt, work):
+    """Phase 10: the ``nll`` CLI on one batch of 8, the VLB route check, and
+    16 prior samples from the ``sample`` CLI; returns the launches by path."""
+    from causaldiffae_torch import nll, sample
+    from causaldiffae_torch.config import get_config
+
+    cfg = get_config("morphomnist_causaldae")
+    reset_counts(ops)  # the NLL path's count
+    t0 = time.perf_counter()
+    with count_unet_calls() as calls:
+        total = nll.main(["--ckpt_dir", ckpt, "--num_samples", "8", "--batch_size", "8",
+                          "--out_dir", os.path.join(work, "nll"), "--seed", str(SEED)])
+    seconds = time.perf_counter() - t0
+    if calls[0] != cfg.diffusion_steps or not (math.isfinite(total) and total > 0):
+        raise AssertionError(f"nll: total_bpd {total} after {calls[0]} UNet calls, expected a "
+                             f"finite positive bpd after {cfg.diffusion_steps}")
+    nll_fwd = check_launches("nll", ops, calls[0], ATTN_PER_CALL[cfg.name])
+    print(f"nll: one batch of 8, {calls[0]} UNet calls in {seconds:.2f} s "
+          f"({1e3 * seconds / calls[0]:.2f} ms per UNet call, the encoder and files included), "
+          f"total_bpd {total:.4f}, "
+          f"{nll_fwd} forward launches, none with lse", flush=True)
+    vb_route_check(cfg, ops, gen)
+
+    reset_counts(ops)  # the prior sampling path's count
+    t0 = time.perf_counter()
+    with count_unet_calls() as calls:
+        path = sample.main(["--ckpt_dir", ckpt, "--num_samples", "16", "--batch_size", "16",
+                            "--sampler", "dpm++", "--sample_steps", "25", "--out_dir",
+                            os.path.join(work, "samples"), "--seed", str(SEED)])
+    seconds = time.perf_counter() - t0
+    check_samples("sample", path, (16, 28, 28, 1), key="arr_0")
+    sample_fwd = check_launches("sample", ops, calls[0], ATTN_PER_CALL[cfg.name])
+    print(f"sample: 16 prior samples, DPM++-25, {calls[0]} UNet calls in {seconds:.3f} s, "
+          f"{sample_fwd} forward launches, none with lse", flush=True)
+    return {"nll": nll_fwd, "prior_sampling": sample_fwd}
 
 
 def main():
@@ -672,6 +899,7 @@ def main():
     from causaldiffae_torch.ops import attention as ops
 
     t_start = time.perf_counter()
+    phase = PhaseClock()
     phase("1. environment")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -797,12 +1025,42 @@ def main():
     torch.cuda.empty_cache()
     train_launches = train_phase(cfg, ops, gen)
 
-    phase("7. circuit_causaldae at full width: train, checkpoint, resume, serve")
-    circuit = cli_phase("circuit_causaldae", ops, gen, steps=(4, 6), save_interval=2,
-                        sampler="ddim", sample_steps=None, intervene_var=0)
-    phase("8. pendulum_causaldae at full width: train, checkpoint, resume, serve")
-    pendulum = cli_phase("pendulum_causaldae", ops, gen, steps=(2, 4), save_interval=2,
-                         sampler="dpm++", sample_steps=25, intervene_var=2)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke-", dir=os.path.join(REPO, "build"))
+    try:  # checkpoints (2.6 GB each for the circuit) and evaluation files
+        phase("7. circuit_causaldae at full width: train, checkpoint, resume, serve")
+        circuit, _ = cli_phase("circuit_causaldae", ops, gen, os.path.join(work, "circuit"),
+                               steps=(4, 6), save_interval=2, sampler="ddim", sample_steps=None,
+                               intervene_var=0)
+        shutil.rmtree(os.path.join(work, "circuit"))
+        phase("8. pendulum_causaldae at full width: train, checkpoint, resume, serve")
+        pendulum, pendulum_ckpt = cli_phase("pendulum_causaldae", ops, gen,
+                                            os.path.join(work, "pendulum"), steps=(2, 4),
+                                            save_interval=2, sampler="dpm++", sample_steps=25,
+                                            intervene_var=2)
+
+        phase("9. morphomnist_causaldae: effectiveness MAE, FID and the rescore")
+        from causaldiffae_torch import train
+
+        morpho_ckpt = os.path.join(work, "morpho-ckpt")
+        t0 = time.perf_counter()
+        train.main(["--preset", "morphomnist_causaldae", "--synthetic", "--total_steps", "2",
+                    "--save_interval", "2", "--log_interval", "1", "--ckpt_dir", morpho_ckpt])
+        print(f"train CLI: 2 steps and a checkpoint in {time.perf_counter() - t0:.2f} s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        torch.cuda.reset_peak_memory_stats()  # the phase's peak is then the evaluation's
+        evaluation = evaluation_phase("morphomnist_causaldae", ops, morpho_ckpt,
+                                      os.path.join(work, "morpho-eval"), num_samples=32,
+                                      sampler=None, sample_steps=None, compute_fid=True)
+        phase("10. morphomnist_causaldae: the NLL sweep and prior samples")
+        nll_paths = nll_and_sampling_phase(ops, gen, morpho_ckpt, work)
+        phase("11. pendulum_causaldae: effectiveness MAE on phase 8's checkpoint")
+        evaluation_pendulum = evaluation_phase(
+            "pendulum_causaldae", ops, pendulum_ckpt, os.path.join(work, "pendulum-eval"),
+            num_samples=16, sampler="dpm++", sample_steps=25, compute_fid=False)
+        phase()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def record(name, replaces, recs, launches_by_path):
         main_rec = recs[0]
@@ -823,7 +1081,9 @@ def main():
                {"serving": launches["attention_fwd"], "training": train_launches["attention_fwd"],
                 "serving_circuit": circuit["serving"], "training_circuit": circuit["training"][0],
                 "serving_pendulum": pendulum["serving"],
-                "training_pendulum": pendulum["training"][0]}),
+                "training_pendulum": pendulum["training"][0],
+                "evaluation": evaluation, **nll_paths,
+                "evaluation_pendulum": evaluation_pendulum}),
         record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
                "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
                {"training": train_launches["attention_bwd"],

@@ -51,6 +51,7 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,T,h,d", [
     (16, 784, 4, 32), (16, 49, 4, 64),          # the main path's shapes
+    (8, 784, 4, 32), (8, 49, 4, 64),            # the NLL sweep's batch of 8
     (3, 100, 2, 64), (2, 77, 2, 128), (1, 1, 1, 32), (2, 64, 3, 32), (2, 65, 2, 128),
     *OTHER_PRESET_SHAPES,
 ])

@@ -101,8 +101,11 @@ def _drive(lg, log_fn):
     return first, second, lg.dumpkvs()
 
 
-def test_logger_matches_jax(tmp_path):
+def test_logger_matches_jax(tmp_path, monkeypatch):
     formats = ["csv", "json", "log"]
+    # the JAX logger is global: put back the one this test replaces, so that
+    # no later test in the process logs through the files closed below
+    monkeypatch.setattr(jax_logger, "_CURRENT", jax_logger._CURRENT)
     want = _drive(jax_logger.configure(dir=str(tmp_path / "jax"), format_strs=formats),
                   jax_logger.log)
     jax_logger.get_current().close()
