@@ -25,9 +25,10 @@
 // - One block of one warpgroup (4 warps) per (64-query tile, head, batch
 //   element); each warp owns 16 query rows. q_s stays in registers as the
 //   A operand for the whole sweep.
-// - K and V tiles of 64 keys stream through a ring of STAGES shared-memory
-//   stages, copied by TMA (one thread starts a copy, an mbarrier counts its bytes)
-//   from a 3-D tensor map over [B, T, 3C]: the copy of the next tiles
+// - K and V tiles of 64 keys stream through a ring of Ring<D>::FWD
+//   shared-memory stages, copied by TMA (one thread starts a copy, an
+//   mbarrier counts its bytes) from a 3-D tensor map over [B, T, 3C]: the
+//   copy of the next tiles
 //   overlaps the math on this one, rows past T arrive as zeros, and no
 //   register or instruction is spent on addresses. The K tile is scaled to
 //   bf16(k s) in place once per tile, then fenced for the async proxy.
@@ -41,6 +42,14 @@
 // - The output is written in place into [B, T, C] from registers. The row
 //   strides of qkv and out are arguments, so a strided view of the token
 //   axis is accepted; the channel axis must be contiguous.
+// - d = 128 (the Pendulum's and the circuit's deep blocks): the Pendulum
+//   training shape (32, 144, 4, 128) is a grid of 384 blocks, two waves at
+//   the 2 blocks per SM that 3 ring stages (99 KB) and 170 registers allow.
+//   With 2 stages (66.5 KB; a T = 144 sweep has 3 tiles) and the scores of
+//   32 keys at a time (two softmax steps per tile: 16 score registers
+//   instead of 32), the kernel holds 153 registers and 3 blocks per SM, and
+//   the grid runs in one wave. The second half's P V product runs on while
+//   the next K tile is scaled.
 // A masked key (the tail of the last tile) gets score -inf; query rows past
 // T are computed on zeros and not stored (their lse is, and stays unread).
 //
@@ -53,20 +62,34 @@
 // is null or fp32 [B, H, Tp] with Tp = T rounded up to 64. The function
 // launches on `stream`, does not synchronise, and returns cudaGetLastError()
 // (0 on success).
+//   int cdae_attention_fwd_info(int D, int kernel, int* smem,
+//                               int* blocks_per_sm)
+// gives the kernel's (kernel 0) dynamic shared memory at head width D and
+// the blocks per SM that it and the kernel's registers allow.
 
 #include "hopper.cuh"
 
 namespace cdae {
 namespace {
 
+// Keys per softmax step: a tile's 64, or at d = 128 two halves of 32, whose
+// scores take 16 registers a thread where 64 keys take 32 (with 64, the
+// kernel needs 170 registers and spills under the 168 of 3 blocks per SM).
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-attention_fwd_kernel(__grid_constant__ const CUtensorMap qkv_map, const bf16* __restrict__ qkv,
-                     bf16* __restrict__ out, float* __restrict__ lse, int T, long long qkv_sb,
-                     long long qkv_st, long long out_sb, long long out_st, float scale) {
+struct FwdPlan {
+  static constexpr int KEYS = D == 128 ? 32 : ROWS;
+};
+
+template <int D>
+__device__ __forceinline__ void attention_fwd_body(
+    const CUtensorMap& qkv_map, const bf16* __restrict__ qkv, bf16* __restrict__ out,
+    float* __restrict__ lse, int T, long long qkv_sb, long long qkv_st, long long out_sb,
+    long long out_st, float scale) {
   using L = Tile<D>;
-  constexpr int KC = D / 16;      // k16 steps of q k^T
-  constexpr int NS = ROWS / 2;    // score accumulators per thread (64 keys)
+  constexpr int KC = D / 16;                  // k16 steps of q k^T
+  constexpr int KEYS = FwdPlan<D>::KEYS;      // keys per softmax step
+  constexpr int NS = KEYS / 2;                // score accumulators per thread
+  constexpr int STAGES = Ring<D>::FWD;
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -112,55 +135,65 @@ attention_fwd_kernel(__grid_constant__ const CUtensorMap qkv_map, const bf16* __
   land(0);
   for (int kt = 0; kt < num_tiles; ++kt) {
     const int stage = kt % STAGES;
-    const int key0 = kt * ROWS;
     __syncthreads();  // tile kt is scaled; every read of tile kt - 1 is done
     if (tid == 0 && kt > 0 && kt - 1 + STAGES < num_tiles)
       fetch(kt - 1 + STAGES, (kt - 1) % STAGES);
 
-    float s[NS];
-    mma_abt<D>(s, qf, k_tile(stage));
-    mma_wait(s);
-    if (key0 + ROWS > T) {
 #pragma unroll
-      for (int i = 0; i < NS; ++i)
-        if (key0 + (i >> 2) * 8 + 2 * t4 + (i & 1) >= T) s[i] = -INFINITY;
-    }
+    for (int part = 0; part < ROWS / KEYS; ++part) {
+      const int key0 = kt * ROWS + part * KEYS;
+      if (part > 0 && key0 >= T) break;  // a half past T: nothing to add
+      float s[NS];
+      mma_abt<D, KEYS>(s, qf, k_tile(stage) + part * KEYS * L::RB);
+      mma_wait(s);
+      if (key0 + KEYS > T) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          if (key0 + (i >> 2) * 8 + 2 * t4 + (i & 1) >= T) s[i] = -INFINITY;
+      }
 
-    // Online softmax: new row max over the 4 threads that share a row.
-    float mx[2] = {m[0], m[1]};
+      // Online softmax: new row max over the 4 threads that share a row.
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    // Every tile holds at least one unmasked key, so mx is finite here and
-    // exp2(-inf) = 0 covers both the first tile and the masked keys.
-    float alpha[2], rowsum[2] = {0.f, 0.f}, mxl[2];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // The first keys of every tile are unmasked, so mx is finite here and
+      // exp2(-inf) = 0 covers both the first step and the masked keys.
+      float alpha[2], rowsum[2] = {0.f, 0.f}, mxl[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);
-      mxl[r] = mx[r] * LOG2E;
-    }
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);
+        mxl[r] = mx[r] * LOG2E;
+      }
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      s[i] = exp2f(fmaf(s[i], LOG2E, -mxl[(i >> 1) & 1]));
-      rowsum[(i >> 1) & 1] += s[i];
-    }
+      for (int i = 0; i < NS; ++i) {
+        s[i] = exp2f(fmaf(s[i], LOG2E, -mxl[(i >> 1) & 1]));
+        rowsum[(i >> 1) & 1] += s[i];
+      }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * alpha[r] + rowsum[r];
-      m[r] = mx[r];
-    }
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + rowsum[r];
+        m[r] = mx[r];
+      }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    uint32_t pf[ROWS / 16][4];
-    acc_to_a<ROWS>(pf, s);
-    mma_ab<D>(acc, pf, v_tile(stage));
-    mma_wait(acc);
+      uint32_t pf[KEYS / 16][4];
+      acc_to_a<KEYS>(pf, s);
+      mma_ab<D, KEYS>(acc, pf, v_tile(stage) + part * KEYS * L::RB);
+      if constexpr (KEYS == ROWS) {
+        mma_wait(acc);
+      } else {  // the last half's product runs on while the next K tile is scaled
+        mma_commit();
+        if (part + 1 < ROWS / KEYS) mma_wait_pending<0>(acc);
+      }
+    }
     if (kt + 1 < num_tiles) land(kt + 1);
+    if constexpr (KEYS != ROWS) mma_wait_pending<0>(acc);
   }
 
   // Normalise by the full row sum and store bf16 pairs.
@@ -189,13 +222,39 @@ attention_fwd_kernel(__grid_constant__ const CUtensorMap qkv_map, const bf16* __
 }
 
 template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+attention_fwd_kernel(__grid_constant__ const CUtensorMap qkv_map, const bf16* __restrict__ qkv,
+                     bf16* __restrict__ out, float* __restrict__ lse, int T, long long qkv_sb,
+                     long long qkv_st, long long out_sb, long long out_st, float scale) {
+  attention_fwd_body<D>(qkv_map, qkv, out, lse, T, qkv_sb, qkv_st, out_sb, out_st, scale);
+}
+
+// d = 128: at the Pendulum training shape (32, 144, 4, 128) the grid holds
+// 384 blocks; 3 per SM (396 on 132 SMs) run it in one wave. That takes at
+// most 65536 / (3 * 128) = 170 registers a thread (168 as allocated) and
+// 3 x 66.5 KB of shared memory (2 ring stages).
+template <>
+__global__ void __launch_bounds__(NUM_THREADS, 3)
+attention_fwd_kernel<128>(__grid_constant__ const CUtensorMap qkv_map,
+                          const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                          float* __restrict__ lse, int T, long long qkv_sb, long long qkv_st,
+                          long long out_sb, long long out_st, float scale) {
+  attention_fwd_body<128>(qkv_map, qkv, out, lse, T, qkv_sb, qkv_st, out_sb, out_st, scale);
+}
+
+template <int D>
+constexpr int fwd_smem() {
+  return ring_smem(Ring<D>::FWD, 2 * Tile<D>::BYTES);  // a K and a V tile per stage
+}
+
+template <int D>
 cudaError_t launch(const void* qkv, void* out, void* lse, int B, int T, int H, long long qkv_sb,
                    long long qkv_st, long long out_sb, long long out_st, float scale,
                    cudaStream_t stream) {
   CUtensorMap map;
   if (!make_tile_map<D>(&map, qkv, 3 * H * D, T, B, qkv_st, qkv_sb))
     return cudaErrorInvalidValue;
-  constexpr int SMEM = STAGES * 2 * Tile<D>::BYTES + 1024;  // + the 1024-byte alignment
+  constexpr int SMEM = fwd_smem<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
@@ -204,6 +263,12 @@ cudaError_t launch(const void* qkv, void* out, void* lse, int B, int T, int H, l
       map, static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<float*>(lse), T,
       qkv_sb, qkv_st, out_sb, out_st, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int* smem, int* blocks_per_sm) {
+  *smem = fwd_smem<D>();
+  return kernel_occupancy(attention_fwd_kernel<D>, *smem, blocks_per_sm);
 }
 
 }  // namespace
@@ -218,6 +283,19 @@ extern "C" int cdae_attention_fwd(const void* qkv, void* out, void* lse, int B, 
     case 32: return launch<32>(qkv, out, lse, B, T, H, qkv_sb, qkv_st, out_sb, out_st, scale, s);
     case 64: return launch<64>(qkv, out, lse, B, T, H, qkv_sb, qkv_st, out_sb, out_st, scale, s);
     case 128: return launch<128>(qkv, out, lse, B, T, H, qkv_sb, qkv_st, out_sb, out_st, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The kernel's dynamic shared memory at head width D and the blocks per SM
+// that it and the kernel's registers allow (the build report's numbers).
+extern "C" int cdae_attention_fwd_info(int D, int kernel, int* smem, int* blocks_per_sm) {
+  using namespace cdae;
+  if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32: return info<32>(smem, blocks_per_sm);
+    case 64: return info<64>(smem, blocks_per_sm);
+    case 128: return info<128>(smem, blocks_per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

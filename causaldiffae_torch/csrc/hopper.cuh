@@ -11,13 +11,20 @@
 // chunk index with the row bits of the address. Tile bases are 1024-byte
 // aligned, so the pattern starts at row 0 of every tile.
 //
-// Products: wgmma, m64 x N x k16. A is always this warpgroup's 64 rows in
-// registers (each warp owns 16 rows, in the m16n8k16 fragment layout); B is
-// a shared tile read by descriptor, either with its rows as the output
+// Products: wgmma, m64 x N x k16. A is this warpgroup's 64 rows, either in
+// registers (each warp owns 16 rows, in the m16n8k16 fragment layout) or as
+// a shared tile read K-major by descriptor (wgmma's SS form, where the
+// registers a resident A would take are needed for accumulators); B is a
+// shared tile read by descriptor, either with its rows as the output
 // columns (K-major: s = q k^T) or with its rows as the contraction
 // (MN-major: o = p v). Accumulators are flat fp32 arrays in wgmma's
 // register order: element 4j + e is row g + 8 (e >> 1), column
 // 8j + 2 t4 + (e & 1) of the warp's 16 rows (g = lane / 4, t4 = lane % 4).
+//
+// Ring. The streamed tiles flow through a ring of shared-memory stages, one
+// mbarrier each; its depth per kernel and head width is Ring<D>, which the
+// kernels' mbarriers and stage offsets and the hosts' shared-memory sizes
+// (ring_smem) all read.
 
 #pragma once
 
@@ -33,7 +40,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int ROWS = 64;          // rows per block (4 warps x 16) and per streamed tile
 constexpr int NUM_THREADS = 128;  // one warpgroup
-constexpr int STAGES = 3;         // shared-memory stages of the tile ring
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ----------------------------------------------------------------- bf16 --
@@ -105,6 +111,25 @@ struct Tile {
   }
 };
 
+// The depth of each kernel's tile ring at head width D: 3 stages at
+// d <= 64. At d = 128 a stage of two tiles is 32 KB and a T = 144 sweep
+// has 3 tiles: the forward and the dk/dv kernel keep 2 stages, the dq
+// kernel 1 beside its resident q_s and g tiles, so that 3 forward or dq
+// blocks (66.5 KB each), or 2 dk/dv blocks (98 KB), fit an SM.
+template <int D>
+struct Ring {
+  static constexpr int FWD = D == 128 ? 2 : 3;
+  static constexpr int DQ = D == 128 ? 1 : 3;
+  static constexpr int DKV = D == 128 ? 2 : 3;
+};
+
+// Dynamic shared memory of a kernel whose ring of `stages` stages holds
+// `per_stage` bytes a stage and which keeps `resident` bytes besides, + 1024
+// for rounding the base up to 1024 bytes (align_1024).
+constexpr int ring_smem(int stages, int per_stage, int resident = 0) {
+  return resident + stages * per_stage + 1024;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -162,11 +187,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// The ring's mbarriers, one per stage, each completed by one arrival (the
-// copying thread's) and the bytes of its copies.
-__device__ __forceinline__ void init_ring(uint64_t (&full)[STAGES]) {
+// The ring's mbarriers (one per stage, and one for a kernel's resident
+// tiles after them), each completed by one arrival (the copying thread's)
+// and the bytes of its copies.
+template <int N>
+__device__ __forceinline__ void init_ring(uint64_t (&full)[N]) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < N; ++s) mbar_init(&full[s], 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -266,6 +293,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
+// wgmma m64 x N x k16, A and B both from shared-memory descriptors (SS),
+// both K-major; D = A B + (scale_d ? D : 0). N = 16, 32 and 64.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -286,10 +357,11 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
-// c (+)= A B with B[k][n] = tile[n][k]: a whole tile, its rows the output
-// columns (K-major), K = D. Only started; mma_wait waits.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[ROWS / 2], const uint32_t (&a)[D / 16][4],
+// c (+)= A B with B[k][n] = tile[n][k]: the first N rows of a tile (all 64
+// by default), its rows the output columns (K-major), K = D. Only started;
+// mma_wait waits.
+template <int D, int N = ROWS>
+__device__ __forceinline__ void mma_abt(float (&c)[N / 2], const uint32_t (&a)[D / 16][4],
                                         const unsigned char* tile) {
   using L = Tile<D>;
   wgmma_fence();
@@ -301,16 +373,35 @@ __device__ __forceinline__ void mma_abt(float (&c)[ROWS / 2], const uint32_t (&a
   }
 }
 
-// c += A B with B[k][n] = tile[k][n]: a tile of 64 rows, its rows the
-// contraction (MN-major), N = D. Only started; mma_wait waits.
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&c)[D / 2], const uint32_t (&a)[ROWS / 16][4],
+// c = A B with A = a_tile and B[k][n] = b_tile[n][k]: a whole tile and the
+// first N rows of another (all 64 by default), both read K-major (the rows
+// of a_tile the output rows, those of b_tile its columns), K = D. Only
+// started; mma_wait waits.
+template <int D, int N = ROWS>
+__device__ __forceinline__ void mma_abt_ss(float (&c)[N / 2], const unsigned char* a_tile,
+                                           const unsigned char* b_tile) {
+  using L = Tile<D>;
+  wgmma_fence();
+  const uint32_t a = smem_u32(a_tile), b = smem_u32(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk * 16 / L::PC) * L::PANEL + (kk * 16 % L::PC) * 2;
+    wgmma_ss(c, gmma_desc(a + off, 16, 8 * L::RB, L::LAYOUT),
+             gmma_desc(b + off, 16, 8 * L::RB, L::LAYOUT), kk > 0);
+  }
+}
+
+// c += A B with B[k][n] = tile[k][n]: the first K rows of a tile (all 64
+// by default), its rows the contraction (MN-major), N = D. Only started;
+// mma_wait waits.
+template <int D, int K = ROWS>
+__device__ __forceinline__ void mma_ab(float (&c)[D / 2], const uint32_t (&a)[K / 16][4],
                                        const unsigned char* tile) {
   using L = Tile<D>;
   wgmma_fence();
   const uint32_t base = smem_u32(tile);
 #pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk)
+  for (int kk = 0; kk < K / 16; ++kk)
     wgmma_rs<1>(c, a[kk], gmma_desc(base + kk * 16 * L::RB, L::PANEL, 8 * L::RB, L::LAYOUT), 1);
 }
 
@@ -319,6 +410,19 @@ template <typename... Acc>
 __device__ __forceinline__ void mma_wait(Acc&... acc) {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  (reg_fence(acc), ...);
+}
+
+// The wgmmas started since the last commit form a group.
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still running, and pin the
+// accumulators of the finished ones after the wait.
+template <int N, typename... Acc>
+__device__ __forceinline__ void mma_wait_pending(Acc&... acc) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
   (reg_fence(acc), ...);
 }
 
@@ -347,6 +451,16 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int width, int T, 
                                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                                 Tile<D>::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Sets `kernel`'s dynamic shared-memory limit to `smem` and gives the
+// blocks of NUM_THREADS per SM that this and its registers allow.
+template <typename Kernel>
+inline cudaError_t kernel_occupancy(Kernel kernel, int smem, int* blocks_per_sm) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, NUM_THREADS, smem);
 }
 
 }  // namespace cdae

@@ -7,7 +7,7 @@ import torch
 
 from ..config import get_config
 from ..ops import _build
-from ..utils import logger
+from ..utils import determinism, logger
 
 __all__ = ["start", "restore_model"]
 
@@ -15,13 +15,15 @@ __all__ = ["start", "restore_model"]
 def start(device: str) -> None:
     """Refuse a CUDA device where there is none (``--device cpu`` runs on the
     CPU) and ``torch.distributed`` (the CLIs are single-process; cross-process
-    gathers come with data parallelism); send log lines to stderr, so that
-    stdout holds only the CLI's JSON line."""
+    gathers come with data parallelism); hold cuDNN to deterministic
+    algorithms, so that the probes a rerun trains are the same bits; send
+    log lines to stderr, so that stdout holds only the CLI's JSON line."""
     if device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         raise SystemExit("the evaluation CLIs are single-process; run them outside "
                          "torch.distributed")
+    determinism.pin()
     logger.configure(format_strs=["stderr"])
 
 

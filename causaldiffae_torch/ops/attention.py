@@ -156,6 +156,26 @@ _SIGNATURES = {
 }
 
 
+# the kernels of each library, in the order of their index in ``cdae_<name>_info``
+KERNELS = {"attention_fwd": ("attention_fwd_kernel",),
+           "attention_bwd": ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
+
+
+def launch_info(name: str, kernel: str, d: int):
+    """``(dynamic shared memory in bytes, blocks per SM)`` with which
+    ``kernel`` of ``csrc/<name>.cu`` launches at head width ``d``: the size
+    its host code sets, and the blocks of 128 threads that this and the
+    kernel's registers let one SM of the current card hold."""
+    fn = getattr(_build.load(name), f"cdae_{name}_info")
+    fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    smem, blocks = _I(), _I()
+    rc = fn(d, KERNELS[name].index(kernel), ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"cdae_{name}_info({d}, {kernel}) failed: CUDA error {rc}")
+    return smem.value, blocks.value
+
+
 def _kernel(name: str):
     """The C entry ``cdae_<name>`` of ``csrc/<name>.cu``, built and typed on first use."""
     fn = getattr(_build.load(name), f"cdae_{name}")

@@ -47,7 +47,10 @@ def main(argv: Optional[List[str]] = None):
     from .data import synthetic_dataset
     from .training import create_train_state, make_train_step
     from .training.loop import to_device
+    from .utils import determinism
     from .utils.weights import fill_normal_
+
+    determinism.pin()  # the step as the train CLI runs it
 
     cfg = get_config(args.preset).replace(seed=SEED)
     model = create_model(cfg, device="cuda")

@@ -14,7 +14,8 @@ config it trained (overrides included); a rerun of the same command resumes
 from the latest one unless ``--no_resume``, and a checkpoint wins over
 ``--init_from``. ``OPENAI_LOG_FORMAT`` picks the logdir's formats (default
 ``log,csv,json``; ``tensorboard`` adds an event file). On the card the
-attention kernels are built at start-up.
+attention kernels are built at start-up, and cuDNN is held to deterministic
+algorithms (``utils.determinism``), so that a rerun gives the same bits.
 
 Usage:
   python -m causaldiffae_torch.train --preset circuit_causaldae --synthetic \\
@@ -38,7 +39,7 @@ from .ops import _build
 from .serve import build_model, str2bool
 from .training import run_training
 from .training.state import TrainState
-from .utils import logger
+from .utils import determinism, logger
 
 OVERRIDES = [("batch_size", int), ("microbatch", int), ("lr", float), ("total_steps", int),
              ("lr_anneal_steps", int), ("log_interval", int), ("save_interval", int),
@@ -77,6 +78,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> Tuple[TrainState, List[dict]]:
     args = parse_args(argv)
+    determinism.pin()  # two runs from the same seed end bit-equal on the card too
     cfg = get_config(args.preset)
     overrides = {k: v for k, v in vars(args).items() if v is not None and hasattr(cfg, k)}
     cfg = cfg.replace(**overrides)

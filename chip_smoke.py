@@ -12,7 +12,12 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    for matrix products and convolutions, so that the fp32 plain versions
    are full fp32;
 2. build every kernel from ``causaldiffae_torch/csrc`` with nvcc (sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; then one line per kernel
+   instantiation from ptxas's report (registers, spill, static and dynamic
+   shared memory, blocks per SM, whether its wgmmas were serialized),
+   raising where a d = 128 instantiation spills, serializes or holds fewer
+   blocks per SM than its design, and where a d = 32 or 64 one moved from
+   ``EARLIER_PTXAS``;
 3. the forward kernel against its plain PyTorch version at the main paths'
    shapes (morphomnist at batch 16 serving and 128 training, a tail case;
    the circuit's and the pendulum's d=64 and d=128 shapes),
@@ -25,8 +30,9 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    of the three presets and a tail case: per element within 1e-4 + 1.6e-2 M
    (M the plain backward on the absolute values of its terms), no farther
    from an fp64 gradient than 1.5x the plain version, two launches bit-equal,
-   with its times, SDPA's backward time (forward + backward minus forward)
-   and its bound;
+   with its times (and the dq and dk/dv kernels' device times per launch
+   apart, from torch.profiler's kernel events), SDPA's backward time
+   (forward + backward minus forward) and its bound;
 4. one full-width ``denoise`` with the kernel, with the plain attention and
    with fp64 attention, on the same random weights: the kernel's eps may
    stand at most 1.5x as far from the fp64 one as the plain version's; the
@@ -60,6 +66,13 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    attends, T=144 d=128): the same, with 2 + 2 steps (one save, a resume)
    and DPM++-25, 1 launch of each kind per step and 1 per UNet call; its
    checkpoint is kept for phase 11;
+8b. repeatability: the train CLI for 2 steps twice in this process and
+   twice in fresh processes, one DDIM-250 do() batch of 16 twice from the
+   same checkpoint, and the evaluation's probes (the ``classifier_train``
+   CLI, 2 epochs) twice in fresh processes, every tensor compared bit for
+   bit (raises on any difference); then the train CLI and the probes twice
+   each with the entry points' cuDNN pin undone, which shows where the
+   differences the pin removes come from;
 9. the effectiveness evaluation of ``morphomnist_causaldae``: 2 steps of
    the train CLI and a checkpoint, then the ``counterfactual_test`` CLI on
    it (DDIM-250, 32 samples in batches of 16, two probes trained in-process,
@@ -125,6 +138,7 @@ ATTN_SHAPES = [  # (B, T, heads, d): the serving path's two shapes first
     (32, 144, 4, 128),  # and training
     (8, 784, 4, 32),    # morphomnist's NLL sweep at batch 8
     (8, 49, 4, 64),
+    (2, 200, 2, 128),   # a d = 128 tail past the 2-stage ring's refill
 ]
 BWD_SHAPES = [          # the training path's two shapes first
     (128, 784, 4, 32),
@@ -135,7 +149,9 @@ BWD_SHAPES = [          # the training path's two shapes first
     (16, 64, 4, 128),
     (16, 16, 4, 128),
     (32, 144, 4, 128),  # pendulum_causaldae
+    (2, 200, 2, 128),   # a d = 128 tail past the ring's refill
 ]
+BWD_KERNELS = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 # the attention launches of one UNet call of each preset (forward; the same
 # count of backward launches per train step)
 ATTN_PER_CALL = {"morphomnist_causaldae": 8, "circuit_causaldae": 15, "pendulum_causaldae": 1}
@@ -158,6 +174,33 @@ SCORE_STD = 2.0       # ... but qkv projections give attention scores this std
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
 # 1.98 GHz boost clock. Printed beside the bound, not part of it.
 PEAK_EXP = 16 * 132 * 1.98e9
+# ptxas's report of the d = 32 and 64 instantiations, which carry the
+# flagship preset, as the tree before the d = 128 redesign built them
+# (registers, spill stores and loads, static and dynamic shared memory in
+# bytes): the redesign leaves them as they were.
+PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "smem_static", "smem_dynamic")
+EARLIER_PTXAS = {
+    "attention_fwd_kernel<32>": (94, 0, 0, 32, 25600),
+    "attention_fwd_kernel<64>": (123, 0, 0, 32, 50176),
+    "attention_bwd_dq_kernel<32>": (122, 0, 0, 32, 25600),
+    "attention_bwd_dq_kernel<64>": (154, 0, 0, 32, 50176),
+    "attention_bwd_dkv_kernel<32>": (154, 0, 0, 32, 27136),
+    "attention_bwd_dkv_kernel<64>": (207, 0, 0, 32, 51712),
+}
+# the d = 128 designs' blocks per SM: the forward and the dq kernel run the
+# Pendulum training grid of 384 blocks in one wave on 132 SMs
+D128_BLOCKS_PER_SM = {"attention_fwd_kernel": 3, "attention_bwd_dq_kernel": 3,
+                      "attention_bwd_dkv_kernel": 2}
+# the repeatability phase: the train CLI for 2 steps and the evaluation's
+# probes (2 epochs), each run twice; fresh processes get this process's TF32
+# setting, and the runs that show the source get the pin undone
+REPEAT_TRAIN = ["--preset", "morphomnist_causaldae", "--synthetic", "--total_steps", "2",
+                "--save_interval", "2", "--log_interval", "1"]
+PROBE_ARGS = ["--dataset", "morphomnist", "--factor", "-1", "--synthetic", "--epochs", "2",
+              "--batch_size", "64", "--out_dir"]
+TF32_OFF = ("import torch\ntorch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n")
+UNPIN = "import causaldiffae_torch.utils.determinism as d\nd.pin = lambda: None\n"
 CLF_EPOCHS = 2        # probe epochs in the evaluation phases (the CLI's default is 100)
 RESCORE_RTOL = 1e-5
 
@@ -210,6 +253,29 @@ def time_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (reps * iters)
 
 
+def kernel_us(fn, names, iters=20):
+    """Mean device time (µs) of one launch of each kernel whose name holds
+    one of ``names``, from torch.profiler's kernel events over ``iters``
+    eager calls of ``fn``; a name the trace has no device time for is left
+    out (where the profiler records no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for n in names:
+            if e.device_type == DeviceType.CUDA and n in e.key and e.count and \
+                    e.self_device_time_total > 0:
+                out[n] = e.self_device_time_total / e.count
+    return out
+
+
 def wall_ms(fn, iters=10, warmup=2):
     """Host-clock time of one ``fn()`` call in ms, ending in a device sync."""
     for _ in range(warmup):
@@ -220,6 +286,44 @@ def wall_ms(fn, iters=10, warmup=2):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def build_phase(ops, _build):
+    """Phase 2: every kernel built, one nvcc per source, all started together;
+    then ptxas's report of each instantiation, with the dynamic shared memory
+    its launch sets and the blocks per SM that allows. Raises on a d = 128
+    instantiation that spills or serializes its wgmmas or holds fewer blocks
+    per SM than its design, and on a d = 32 or 64 one whose registers, spill
+    or shared memory moved from EARLIER_PTXAS. Returns the records by source."""
+    sources = tuple(ops.KERNELS)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        builds = list(pool.map(_build.build, sources))
+    report = {}
+    for name, (seconds, log) in zip(sources, builds):
+        print(f"nvcc csrc/{name}.cu: {seconds:.2f} s")
+        recs = _build.ptxas_report(log)
+        want = sorted((k, d) for k in ops.KERNELS[name] for d in ops.KERNEL_HEAD_DIMS)
+        if sorted((r["kernel"], r["d"]) for r in recs) != want:
+            raise AssertionError(f"ptxas reported {[r['name'] for r in recs]} for csrc/{name}.cu, "
+                                 f"expected {want}:\n{log}")
+        for r in recs:
+            r["smem_dynamic"], r["blocks_per_sm"] = ops.launch_info(name, r["kernel"], r["d"])
+            print(f"ptxas {r['kernel']}<{r['d']}>: {r['registers']} registers, spill "
+                  f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded, stack "
+                  f"{r['stack']} B, shared memory {r['smem_static']} B static + "
+                  f"{r['smem_dynamic']} B dynamic, {r['blocks_per_sm']} blocks per SM, wgmma "
+                  + (f"SERIALIZED ({r['serialized_reason']})" if r["wgmma_serialized"]
+                     else "not serialized"), flush=True)
+            key = f"{r['kernel']}<{r['d']}>"
+            if r["d"] == 128 and (r["spill_stores"] or r["spill_loads"] or r["wgmma_serialized"]
+                                  or r["blocks_per_sm"] < D128_BLOCKS_PER_SM[r["kernel"]]):
+                raise AssertionError(f"{key} spills, serializes its wgmmas or holds fewer than "
+                                     f"{D128_BLOCKS_PER_SM[r['kernel']]} blocks per SM")
+            if r["d"] != 128 and tuple(r[k] for k in PTXAS_KEYS) != EARLIER_PTXAS[key]:
+                raise AssertionError(f"{key}: {dict((k, r[k]) for k in PTXAS_KEYS)}, before "
+                                     f"{dict(zip(PTXAS_KEYS, EARLIER_PTXAS[key]))}")
+        report[name] = recs
+    return report
 
 
 def attention_bound(B, T, H, d):
@@ -378,10 +482,13 @@ def check_backward(ops, B, T, H, d, gen):
     sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
     sdpa_both = lambda: torch.autograd.grad(sdpa_fwd(), (q, k, v), g_h)
     bound_ms, bound_by = attention_bwd_bound(B, T, H, d)
+    split = kernel_us(lambda: ops.attention_bwd(qkv, g, H, out, lse), BWD_KERNELS)
     rec = {
         "shape": [B, T, H, d],
         "max_abs_err": float(err.max()),
         "ms": time_ms(lambda: ops.attention_bwd(qkv, g, H, out, lse)),
+        "dq_us": split.get("attention_bwd_dq_kernel"),
+        "dkv_us": split.get("attention_bwd_dkv_kernel"),
         "plain_ms": time_ms(lambda: ops.attention_bwd_plain(qkv, g, H), iters=3),
         "library_ms": max(time_ms(sdpa_both) - time_ms(sdpa_fwd), 0.0),
         "bound_ms": bound_ms,
@@ -391,7 +498,9 @@ def check_backward(ops, B, T, H, d, gen):
           f"{ATTN_ATOL} + {ATTN_RTOL}*M, max err / M {float((err / scale).max()):.3e}, "
           f"gradient rms {rms(want):.3e}); RMS from fp64 on {n} batch elements: kernel "
           f"{d_kernel:.3e}, plain {d_plain:.3e}; kernel_ms {rec['ms']:.4f}, plain_ms "
-          f"{rec['plain_ms']:.4f} (at B={B}), library_ms (SDPA fwd+bwd minus fwd) "
+          f"{rec['plain_ms']:.4f} (at B={B}), device us per launch (profiler) dq kernel "
+          f"{rec['dq_us'] or 'not measured'}, dk/dv kernel {rec['dkv_us'] or 'not measured'}, "
+          f"library_ms (SDPA fwd+bwd minus fwd) "
           f"{rec['library_ms']:.4f}, bound_us {1e3 * bound_ms:.2f} ({bound_by}), "
           f"exp_unit_us {1e6 * B * H * T * T / PEAK_EXP:.2f}", flush=True)
     return rec
@@ -698,6 +807,111 @@ def cli_phase(name, ops, gen, work, *, steps, save_interval, sampler, sample_ste
     return {"training": train_counts, "serving": fwd}, ckpt
 
 
+def fresh_runs(work, tag, module, argv, setup="", n=2):
+    """``n`` runs of ``python -m causaldiffae_torch.<module>``'s ``main(argv +
+    [dir])``, each in a fresh process, all started together; ``setup`` runs
+    first in each. Returns their directories (``<work>/<tag>-<i>``)."""
+    dirs = [os.path.join(work, f"{tag}-{i}") for i in range(n)]
+    procs = []
+    try:
+        for d in dirs:
+            code = (f"{setup}from causaldiffae_torch import {module}\n"
+                    f"{module}.main({argv + [d]!r})\n")
+            procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                                          stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                          text=True))
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"{module} in a fresh process exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return dirs
+
+
+def state_spread(a, b):
+    """``differences`` of two states, summed up: (tensors compared, tensors
+    that differ, the largest |a - b| of each top-level part)."""
+    from causaldiffae_torch.utils.determinism import differences, tensors
+
+    diff = differences(a, b)
+    worst = {}
+    for path, v in diff.items():
+        part = path.split("/")[1]
+        worst[part] = max(worst.get(part, 0.0), v)
+    return len(dict(tensors(a))), len(diff), worst
+
+
+def probe_states(out_dir):
+    """The probes the ``classifier_train`` CLI saved in ``out_dir``, by file."""
+    import pickle
+
+    states = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            saved = pickle.load(f)
+        states[name] = {k: torch.from_numpy(v) for k, v in saved["state_dict"].items()}
+    return states
+
+
+def repeatability_phase(work):
+    """Phase 8b: the same work twice from the same seed and weights, bit for
+    bit. Raises on a difference in any run the port's entry points pin;
+    reports the runs with the pin undone, which show the source."""
+    from causaldiffae_torch import serve, train
+    from causaldiffae_torch.training import CheckpointManager
+
+    load = lambda d: CheckpointManager(d).load()
+    found = {}
+    # 1. the train CLI twice in this process, 2 steps from the seed's weights
+    here = [os.path.join(work, f"repeat-{i}") for i in range(2)]
+    for d in here:
+        train.main(REPEAT_TRAIN + ["--ckpt_dir", d])
+    found["train CLI, in this process"] = state_spread(load(here[0]), load(here[1]))
+    # 2. in two fresh processes each (TF32 off, as here)
+    fresh = fresh_runs(work, "repeat-fresh", "train", REPEAT_TRAIN + ["--ckpt_dir"], TF32_OFF)
+    found["train CLI, fresh processes"] = state_spread(load(fresh[0]), load(fresh[1]))
+    # 3. one DDIM-250 do() batch of 16 twice from the same checkpoint
+    answers = []
+    for i in range(2):
+        out = os.path.join(work, f"repeat-ddim-{i}.npz")
+        serve.main(["--ckpt_dir", here[0], "--synthetic", "16", "--batch", "16", "--value", "1.0",
+                    "--out", out, "--seed", str(SEED)])
+        with np.load(out) as z:
+            answers.append({"samples": torch.from_numpy(z["samples"])})
+    found["DDIM-250 do() batch"] = state_spread(*answers)
+    # 4. the evaluation's probes (fp32 convolutions), as the CLI runs them
+    probes = fresh_runs(work, "repeat-probes", "classifier_train", PROBE_ARGS, TF32_OFF)
+    found["probes, fresh processes"] = state_spread(*map(probe_states, probes))
+    # 5. the train CLI and the probes with the pin undone (the setting before it)
+    fresh = fresh_runs(work, "repeat-unpinned", "train", REPEAT_TRAIN + ["--ckpt_dir"],
+                       TF32_OFF + UNPIN)
+    unpinned = {"train CLI": state_spread(load(fresh[0]), load(fresh[1]))}
+    probes = fresh_runs(work, "repeat-probes-unpinned", "classifier_train", PROBE_ARGS,
+                        TF32_OFF + UNPIN)
+    unpinned["probes"] = state_spread(*map(probe_states, probes))
+    for pinned, runs in ((True, found), (False, unpinned)):
+        for what, (n, k, worst) in runs.items():
+            print(f"repeatability, {what}{'' if pinned else ', cuDNN unpinned'}: {k} of {n} "
+                  f"tensors differ" + (f", max |a - b| by part {worst}" if k else " (bit-equal)"),
+                  flush=True)
+    if unpinned["probes"][1] and not unpinned["train CLI"][1]:
+        print("repeatability: the source is cuDNN's nondeterministic fp32 convolution backward "
+              "in the probes, which the pin replaces; the train step (its bf16 convolutions, "
+              "nn.Embedding) gives the same bits either way", flush=True)
+    for name in os.listdir(work):  # ~0.6 GB a checkpoint
+        path = os.path.join(work, name)
+        if name.startswith("repeat-"):
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    differ = [what for what, (_, k, _) in found.items() if k]
+    if differ:
+        raise AssertionError(f"two runs from the same seed and weights are not bit-equal: {differ}")
+
+
 @contextlib.contextmanager
 def count_unet_calls():
     """Counts ``CausalUNet.denoise`` calls meanwhile (every chain step, every
@@ -911,12 +1125,7 @@ def main():
     print("TF32 off for matmul and cuDNN: the fp32 plain versions run in full fp32")
 
     phase("2. build")
-    sources = ("attention_fwd", "attention_bwd")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
-        builds = list(pool.map(_build.build, sources))
-    for name, (seconds, log) in zip(sources, builds):
-        print(f"nvcc csrc/{name}.cu: {seconds:.2f} s")
-        print(log.strip())
+    ptxas = build_phase(ops, _build)
 
     phase("3. forward kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1039,6 +1248,8 @@ def main():
                                             save_interval=2, sampler="dpm++", sample_steps=25,
                                             intervene_var=2)
 
+        phase("8b. repeatability: train, serve and the probes twice, bit for bit")
+        repeatability_phase(work)
         phase("9. morphomnist_causaldae: effectiveness MAE, FID and the rescore")
         from causaldiffae_torch import train
 
@@ -1071,8 +1282,10 @@ def main():
             "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             **{k: main_rec[k] for k in ("ms", "ms_with_lse", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "shape") if k in main_rec},
+                                        "library_ms", "dq_us", "dkv_us", "shape")
+               if k in main_rec},
             "other_shapes": recs[1:],
+            "ptxas": ptxas[name],
         }
 
     kernels = [

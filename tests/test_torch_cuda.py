@@ -41,10 +41,14 @@ def _qkv(b, T, h, d, device, seed=0, std=1.0):
 
 # the circuit's and the pendulum's training shapes (T=256 d=64; d=128 at T=64, 16, 144)
 OTHER_PRESET_SHAPES = [(16, 256, 4, 64), (16, 64, 4, 128), (16, 16, 4, 128), (32, 144, 4, 128)]
+# d = 128 tails: one key, one past a tile, one past two (T = 144's neighbour), 4 tiles;
+# the 2-stage ring refills a stage at T > 128
+D128_TAILS = [(2, 1, 2, 128), (2, 65, 2, 128), (2, 129, 2, 128), (2, 200, 2, 128)]
+PENDULUM_TRAIN = (32, 144, 4, 128)
 BWD_SHAPES = [(16, 784, 4, 32), (16, 49, 4, 64), (3, 100, 2, 64), (2, 77, 2, 128),
               # tails: the tensor maps' zero fill and the batch boundary
               (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32), (3, 100, 2, 128),
-              *OTHER_PRESET_SHAPES]
+              *OTHER_PRESET_SHAPES, *D128_TAILS]
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -52,8 +56,8 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 @pytest.mark.parametrize("b,T,h,d", [
     (16, 784, 4, 32), (16, 49, 4, 64),          # the main path's shapes
     (8, 784, 4, 32), (8, 49, 4, 64),            # the NLL sweep's batch of 8
-    (3, 100, 2, 64), (2, 77, 2, 128), (1, 1, 1, 32), (2, 64, 3, 32), (2, 65, 2, 128),
-    *OTHER_PRESET_SHAPES,
+    (3, 100, 2, 64), (2, 77, 2, 128), (1, 1, 1, 32), (2, 64, 3, 32),
+    *OTHER_PRESET_SHAPES, *D128_TAILS,
 ])
 def test_attention_kernel_matches_plain(cuda_device, b, T, h, d):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -70,7 +74,7 @@ def test_attention_kernel_matches_plain(cuda_device, b, T, h, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,T,h,d", [
     (16, 784, 4, 32), (16, 49, 4, 64), (3, 1, 2, 32), (2, 65, 2, 64), (2, 77, 3, 32),
-    (3, 100, 2, 128), *OTHER_PRESET_SHAPES,
+    (3, 100, 2, 128), *OTHER_PRESET_SHAPES, *D128_TAILS,
 ])
 def test_attention_kernel_lse_matches_plain(cuda_device, b, T, h, d):
     qkv = _qkv(b, T, h, d, cuda_device, seed=2, std=2 ** 0.5)
@@ -85,9 +89,9 @@ def test_attention_kernel_lse_matches_plain(cuda_device, b, T, h, d):
 
 
 @pytest.mark.cuda
-def test_attention_kernel_takes_row_strided_views(cuda_device):
+@pytest.mark.parametrize("b,T,h,d", [(2, 49, 4, 64), (2, 144, 2, 128)])
+def test_attention_kernel_takes_row_strided_views(cuda_device, b, T, h, d):
     """A token axis with a row stride larger than 3C (a view into a wider buffer)."""
-    b, T, h, d = 2, 49, 4, 64
     wide = _qkv(b, T, h, d + 8, cuda_device, seed=1)       # [b, T, 3*h*(d+8)]
     qkv = wide[..., :3 * h * d]
     assert not qkv.is_contiguous()
@@ -135,9 +139,9 @@ def test_attention_bwd_kernel_matches_plain(cuda_device, b, T, h, d):
 
 
 @pytest.mark.cuda
-def test_attention_bwd_kernel_takes_row_strided_views(cuda_device):
+@pytest.mark.parametrize("b,T,h,d", [(2, 77, 2, 32), (2, 144, 2, 128)])
+def test_attention_bwd_kernel_takes_row_strided_views(cuda_device, b, T, h, d):
     """qkv and g as views into wider buffers (row strides larger than 3C and C)."""
-    b, T, h, d = 2, 77, 2, 32
     wide, gw = _bwd_inputs(b, T, h, d + 16, cuda_device)
     qkv, g = wide[..., :3 * h * d], gw[..., :h * d]
     assert not qkv.is_contiguous() and not g.is_contiguous()
@@ -146,6 +150,18 @@ def test_attention_bwd_kernel_takes_row_strided_views(cuda_device):
     qc, gc = qkv.contiguous(), g.contiguous()
     oc, lc = ops.attention_fwd(qc, h, True)
     torch.testing.assert_close(got, ops.attention_bwd(qc, gc, h, oc, lc), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_launches_are_bit_equal_at_the_pendulum_shape(cuda_device):
+    """Two kernels and no atomics: every launch on the same inputs gives the
+    same bits, the D scratch included (read by the dk/dv kernel)."""
+    b, T, h, d = PENDULUM_TRAIN
+    qkv, g = _bwd_inputs(b, T, h, d, cuda_device)
+    out, lse = ops.attention_fwd(qkv, h, True)
+    first = ops.attention_bwd(qkv, g, h, out, lse)
+    for _ in range(3):
+        torch.testing.assert_close(ops.attention_bwd(qkv, g, h, out, lse), first, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
