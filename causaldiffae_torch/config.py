@@ -166,11 +166,6 @@ def create_model(cfg: Config, device="cuda"):
     encoder's BatchNorm on batch statistics)."""
     from .models.unet import CausalUNet
 
-    if cfg.flow_based:
-        raise NotImplementedError("the flow prior (flow_based=True) is not ported yet")
-    if cfg.dropout > 0:
-        raise NotImplementedError(f"dropout={cfg.dropout}: the port has no dropout "
-                                  "(every preset trains with 0.0)")
     model = CausalUNet(
         in_channels=cfg.in_channels,
         model_channels=cfg.num_channels,
@@ -185,11 +180,13 @@ def create_model(cfg: Config, device="cuda"):
         c_dim=len(DATA_SCALES[cfg.dataset]) if cfg.context_cond else None,
         rep_dim=cfg.rep_dim if cfg.rep_cond else None,
         causal_modeling=cfg.causal_modeling,
+        flow_based=cfg.flow_based,
+        dropout=cfg.dropout,
         num_heads=cfg.num_heads,
         num_heads_upsample=cfg.num_heads_upsample,
         use_scale_shift_norm=cfg.use_scale_shift_norm,
         n_vars=cfg.n_vars,
-        adjacency=ADJACENCY[cfg.dataset] if cfg.causal_modeling else None,
+        adjacency=ADJACENCY[cfg.dataset] if (cfg.causal_modeling or cfg.flow_based) else None,
         learn_adjacency=cfg.learn_adjacency,
         masking=cfg.masking,
         drop_prob=cfg.drop_prob,

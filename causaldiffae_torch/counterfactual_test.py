@@ -26,8 +26,17 @@ Branches:
 The requests and values come from ``numpy.random.RandomState(seed)`` in the
 JAX CLI's order (``interventions.intervention_plan``), so a run replays the
 JAX CLI's requests and ground truth; the chains' noise comes from torch
-generators. Single process. Prints one JSON line with the JAX CLI's keys;
-log lines go to stderr.
+generators. Prints one JSON line with the JAX CLI's keys; log lines go to
+stderr.
+
+Across W ranks (``torchrun``) the CLI follows the JAX CLI's protocol
+(``scripts/counterfactual_test.py:268-446``): the primary alone trains and
+writes the probes while the others wait and then read them; each rank draws
+its own requests (``RandomState(seed + 1000003 * rank)``) and chain noise;
+the samples are gathered before they are saved and scored for FID, the
+primary alone writes files (stamped ``process_count`` = W, which the
+rescore refuses), and each MAE is the mean of the ranks' means. Every rank
+prints the same JSON line.
 
 Usage:
   python -m causaldiffae_torch.counterfactual_test --ckpt_dir ckpt/morpho --synthetic \\
@@ -56,6 +65,8 @@ from .evals import (ClassifierTrainer, classifier_predict_fn, compute_dci, compu
 from .evals.cli import restore_model, start
 from .evals.quality import FID, default_feature_fn
 from .interventions import INTERVENTION_RANGES, VAR_NAMES, intervention_plan
+from .parallel import (barrier, gather_across_ranks, is_primary, mean_across_ranks, rank,
+                       world_size)
 from .serve import context_counterfactual_fn, str2bool
 from .utils import logger
 from .utils.images import save_grid
@@ -108,7 +119,7 @@ def _generator(seed: int, device) -> torch.Generator:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
-    start(args.device)
+    args.device = start(args.device, across_ranks=True)
     if args.eval_disentanglement and importlib.util.find_spec("sklearn") is None:
         raise SystemExit("--eval_disentanglement needs scikit-learn (DCI's boosted trees)")
     cfg, model, _ = restore_model(args.preset, args.ckpt_dir, args.use_ema, args.seed,
@@ -184,7 +195,7 @@ def load_or_train_probes(args, cfg, train_pool):
         if not os.path.exists(path) and os.path.exists(ref_path):
             logger.log(f"importing reference torch classifier {ref_path}")
             path = ref_path
-        if not os.path.exists(path):
+        if not os.path.exists(path) and is_primary():
             logger.log(f"training anti-causal classifier for {name}...")
             tr = ClassifierTrainer(dataset, f, cfg.n_vars, seed=args.seed, device=device)
             n = len(train_pool["image"])
@@ -195,6 +206,7 @@ def load_or_train_probes(args, cfg, train_pool):
                    {k: v[perm[cut:]] for k, v in train_pool.items()},
                    epochs=args.clf_epochs, batch_size=64, log_every=10)
             tr.save_best(path)
+        barrier()  # the other ranks read the primary's probe
         model, meta = load_classifier(path, cfg.n_vars, cfg.image_size, cfg.in_channels,
                                       device=device)
         probes.append((name, model, float(meta.get("best_val", float("nan")))))
@@ -214,7 +226,8 @@ def effectiveness(args, cfg, model, train_pool, test_pool, num_samples, syntheti
         fid.update(np.clip(test_pool["image"][:num_samples * 2], 0, 1), real=True)
 
     n_batches = max(num_samples // args.batch_size, 1)
-    probe_sel, plan = intervention_plan(dataset, test_pool["c"], seed=args.seed,
+    probe_sel, plan = intervention_plan(dataset, test_pool["c"],
+                                        seed=args.seed + 1000003 * rank(),
                                         batch_size=args.batch_size, n_batches=n_batches)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -236,10 +249,11 @@ def effectiveness(args, cfg, model, train_pool, test_pool, num_samples, syntheti
         recon = recon_fn(probe_x, probe_cond, _generator(args.seed + 7, device)).cpu().numpy()
         original = test_pool["image"][probe_sel]
         k = min(8, len(recon))
-        save_grid(np.concatenate([original[:k], recon[:k]], 0),
-                  os.path.join(out_dir, "reconstructions.png"), ncol=k)
-        np.savez(os.path.join(out_dir, "reconstructions.npz"), original=original[:k],
-                 recon=recon[:k])
+        if is_primary():
+            save_grid(np.concatenate([original[:k], recon[:k]], 0),
+                      os.path.join(out_dir, "reconstructions.png"), ncol=k)
+            np.savez(os.path.join(out_dir, "reconstructions.npz"), original=original[:k],
+                     recon=recon[:k])
         logger.log(f"reconstruction grid saved ({k} pairs) in {time.perf_counter() - t0:.3f} s, "
                    f"mae={np.abs(recon[:k] - original[:k]).mean():.4f}")
 
@@ -265,14 +279,16 @@ def effectiveness(args, cfg, model, train_pool, test_pool, num_samples, syntheti
             rows = [cf_fn(probe_x, probe_cond, float(val),
                           _generator(args.seed + 31, device)).cpu().numpy()[:k8]
                     for val in np.linspace(lo, hi, 8)]
-            save_grid(np.concatenate(rows, 0), os.path.join(out_dir, f"traversal_{name}.png"),
-                      ncol=k8)
+            if is_primary():
+                save_grid(np.concatenate(rows, 0),
+                          os.path.join(out_dir, f"traversal_{name}.png"), ncol=k8)
             logger.log(f"traversal grid for {name}: 8 levels x {k8} samples")
         grids = []
         for b, req in enumerate(plan[var_idx]):
             t0 = time.perf_counter()
             x = to(test_pool["image"][req.sel])
-            gen = _generator(args.seed * 1000 + var_idx * 100 + b, device)
+            # each rank its own chain noise (the JAX CLI folds in the process index)
+            gen = _generator(args.seed * 1000 + var_idx * 100 + b + (rank() << 32), device)
             samples = cf_fn(x, conditioning(req.sel), req.value, gen)
             grids.append(samples.cpu().numpy())  # waits for the device
             latency = time.perf_counter() - t0
@@ -281,18 +297,19 @@ def effectiveness(args, cfg, model, train_pool, test_pool, num_samples, syntheti
                 out = pred(clipped).cpu().numpy()
                 mae[factor].append(np.abs(out - req.gt_norm[:, f]).mean())
             logger.log(f"do({name} = {req.raw_value:.4g}) batch {b}: {latency:.3f} s")
-        allg = np.concatenate(grids, 0)
+        allg = gather_across_ranks(np.concatenate(grids, 0))
         if fid is not None:
             fid.update(np.clip(allg, 0, 1), real=False)
-        # the generation plan's stamps, which rescore_counterfactuals checks
-        np.savez(os.path.join(out_dir, f"samples_do_{name}.npz"), samples=allg, seed=args.seed,
-                 batch_size=args.batch_size, num_samples=num_samples, process_count=1,
-                 synthetic_pool=int(synthetic))
-        save_grid(allg[:64], os.path.join(out_dir, f"grid_do_{name}.png"))
+        if is_primary():
+            # the generation plan's stamps, which rescore_counterfactuals checks
+            np.savez(os.path.join(out_dir, f"samples_do_{name}.npz"), samples=allg,
+                     seed=args.seed, batch_size=args.batch_size, num_samples=num_samples,
+                     process_count=world_size(), synthetic_pool=int(synthetic))
+            save_grid(allg[:64], os.path.join(out_dir, f"grid_do_{name}.png"))
         logger.log(f"do({name}): saved {len(allg)} samples")
 
     # each MAE ships with its probe's calibration (best validation MSE)
-    result = {f"mae_{k}": float(np.mean(v)) for k, v in mae.items() if v}
+    result = {f"mae_{k}": mean_across_ranks(float(np.mean(v))) for k, v in mae.items() if v}
     for name, _, best_val in probes:
         result[f"clf_val_mse_{name}"] = best_val
     if fid is not None:

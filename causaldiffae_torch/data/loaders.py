@@ -16,7 +16,10 @@ JAX package feeds them (the model goes NCHW inside).
 - Generic folder loader: BOX halving + BICUBIC resize + center crop, scaled
   to [-1,1].
 
-The port trains in one process, so nothing is sharded across processes.
+``batch_size`` is the GLOBAL batch: under data parallelism (W ranks of
+``torch.distributed``) each rank keeps its ``[rank::W]`` slice of the
+dataset and yields ``batch_size / W`` rows per batch, as the JAX package's
+per-host feed does (``causaldiffae_tpu/data/loaders.py:70-77,294-307``).
 
 PIL and pandas are imported where a loader needs them. The JAX package's
 native C++ prefetch loader is not ported; ``load_data`` serves the numpy
@@ -35,9 +38,11 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..config import DATA_SCALES
+from ..parallel import local_batch_size, rank, world_size
 
 __all__ = ["load_idx", "save_idx", "load_morphomnist", "load_pendulum",
-           "load_circuit", "load_image_folder", "batch_iterator", "load_data", "load_split"]
+           "load_circuit", "load_image_folder", "rank_shard", "batch_iterator", "load_data",
+           "load_split"]
 
 
 # --------------------------------------------------------------------- #
@@ -184,6 +189,16 @@ def load_image_folder(root: str, image_size: int, class_cond: bool = False) -> D
     return out
 
 
+def rank_shard(data: Dict[str, np.ndarray], batch_size: int):
+    """(this rank's ``[rank::W]`` slice of ``data``, its ``batch_size / W`` rows
+    per batch); ``(data, batch_size)`` in one process."""
+    W = world_size()
+    if W == 1:
+        return data, batch_size
+    r = rank()
+    return {k: v[r::W] for k, v in data.items()}, local_batch_size(batch_size, W)
+
+
 # --------------------------------------------------------------------- #
 def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
                    shuffle: bool = True, drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
@@ -201,7 +216,8 @@ def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
 
 def load_data(*, data_dir: str, batch_size: int, image_size: int,
               class_cond: bool = False, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Shuffled batches of the training split, the loader picked by the directory name."""
+    """Shuffled batches of the training split, the loader picked by the
+    directory name; this rank's shard of the global ``batch_size``."""
     if not data_dir:
         raise ValueError("unspecified data directory")
     if "morphomnist" in data_dir:
@@ -212,7 +228,7 @@ def load_data(*, data_dir: str, batch_size: int, image_size: int,
         data = load_circuit(data_dir, image_size=image_size)
     else:
         data = load_image_folder(data_dir, image_size, class_cond=class_cond)
-    return batch_iterator(data, batch_size, seed=seed)
+    return batch_iterator(*rank_shard(data, batch_size), seed=seed)
 
 
 def load_split(dataset: str, data_dir: str, split: str) -> Dict[str, np.ndarray]:

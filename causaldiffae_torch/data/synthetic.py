@@ -15,7 +15,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config import DATA_SCALES
-from .loaders import batch_iterator
+from .loaders import batch_iterator, rank_shard
 from .simulators import (
     circuit_scm,
     morphomnist_scm,
@@ -73,6 +73,9 @@ def synthetic_dataset(dataset: str, n: int, seed: int = 0,
 
 def synthetic_iterator(dataset: str, batch_size: int, seed: int = 0,
                        image_size: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
-    """Shuffled batches over a fixed synthetic pool of ``POOL`` samples."""
+    """Shuffled batches over a fixed synthetic pool of ``POOL`` samples; under
+    data parallelism this rank's ``[rank::W]`` slice of the pool and its
+    ``batch_size / W`` rows of the global ``batch_size`` per batch
+    (``causaldiffae_tpu/data/synthetic.py:99-109``)."""
     data = synthetic_dataset(dataset, POOL, seed=seed, image_size=image_size)
-    return batch_iterator(data, batch_size, seed=seed + 1)
+    return batch_iterator(*rank_shard(data, batch_size), seed=seed + 1)

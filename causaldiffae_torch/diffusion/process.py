@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import sum_across_ranks
 from .losses import discretized_gaussian_log_likelihood, kl_normal, mean_flat, normal_kl
 from .respace import respace_schedule, space_timesteps
 from .schedule import DiffusionSchedule, get_named_beta_schedule, make_schedule
@@ -318,9 +319,14 @@ class GaussianDiffusion:
 
         KL(q(u|x) || N(0, I)) with q = (mu, var), ``var`` being the encoder's
         softplus'd output used as a variance; with ``causal_modeling`` plus
-        sum_i KL(N(z_post_i, I) || N(c_i, I)). With a keep-mask the result
-        is the scalar sum(kl * mask) / max(sum(mask), 1) (the denominator
-        guarded against an all-dropped batch); without one, per sample [N].
+        sum_i KL(N(z_post_i, I) || N(c_i, I)). With a mask the result is the
+        scalar sum(kl * mask) / max(sum(mask), 1) (the denominator guarded
+        against an all-dropped batch); without one, per sample [N]. The mask
+        is the keep-mask [N], or the flow prior's scalar -mean(log_det),
+        whose sum is itself. Under data parallelism both sums run over the
+        global batch (``parallel.sum_across_ranks``; the flow's mask is
+        global already), as the JAX step's do: each rank then holds the
+        global scalar, and its gradient reaches every rank's rows.
         """
         num_vars = c.shape[1]
         dim = mu.shape[1] // num_vars
@@ -329,9 +335,12 @@ class GaussianDiffusion:
             zb = z_post.reshape(-1, num_vars, dim)
             ones = torch.ones_like(zb)
             kld = kld + kl_normal(zb, ones, self.label_prior_mean(c, dim), ones).sum(dim=1)
-        if mask is not None:
-            return (kld * mask).sum() / mask.sum().clamp(min=1.0)
-        return kld
+        if mask is None:
+            return kld
+        if mask.ndim == 0:
+            return sum_across_ranks((kld * mask).sum()) / mask.clamp(min=1.0)
+        num, count = sum_across_ranks(torch.stack([(kld * mask).sum(), mask.sum()]))
+        return num / count.clamp(min=1.0)
 
     def training_losses(self, forward_fn: Callable[[torch.Tensor, torch.Tensor],
                                                    Tuple[torch.Tensor, Dict]],

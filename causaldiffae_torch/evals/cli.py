@@ -1,5 +1,12 @@
 """Start-up shared by the port's evaluation CLIs (``counterfactual_test``,
-``classifier_train``, ``rescore_counterfactuals``, ``nll``, ``sample``)."""
+``classifier_train``, ``rescore_counterfactuals``, ``nll``, ``sample``).
+
+``counterfactual_test``, ``nll`` and ``sample`` run across the ranks that
+``torchrun`` starts (or a process group the caller set up), as the JAX CLIs
+run across hosts: each rank draws its own share, the ranks gather the
+samples, and the primary writes. ``classifier_train`` and
+``rescore_counterfactuals`` stay single-process, as the JAX package's do.
+"""
 
 from __future__ import annotations
 
@@ -7,24 +14,29 @@ import torch
 
 from ..config import get_config
 from ..ops import _build
+from ..parallel import init_from_env
 from ..utils import determinism, logger
 
 __all__ = ["start", "restore_model"]
 
 
-def start(device: str) -> None:
+def start(device: str, *, across_ranks: bool = False) -> str:
     """Refuse a CUDA device where there is none (``--device cpu`` runs on the
-    CPU) and ``torch.distributed`` (the CLIs are single-process; cross-process
-    gathers come with data parallelism); hold cuDNN to deterministic
+    CPU); join ``torchrun``'s process group when the CLI runs ``across_ranks``,
+    else refuse ``torch.distributed``; hold cuDNN to deterministic
     algorithms, so that the probes a rerun trains are the same bits; send
-    log lines to stderr, so that stdout holds only the CLI's JSON line."""
+    log lines to stderr (the primary rank's), so that stdout holds only the
+    CLI's JSON line. Returns this rank's device."""
     if device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise SystemExit("the evaluation CLIs are single-process; run them outside "
+    if across_ranks:
+        device = init_from_env(device)
+    elif torch.distributed.is_available() and torch.distributed.is_initialized():
+        raise SystemExit("this CLI is single-process, as the JAX package's; run it outside "
                          "torch.distributed")
     determinism.pin()
     logger.configure(format_strs=["stderr"])
+    return device
 
 
 def restore_model(preset, ckpt_dir, use_ema: bool, seed: int, device: str):

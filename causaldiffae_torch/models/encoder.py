@@ -24,24 +24,35 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import sum_across_ranks, world_size
 from .layers import conv
 
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, over_ranks: bool) -> torch.Tensor:
     """Train-mode BatchNorm with flax 0.12.3's ``_compute_stats`` semantics.
 
-    The statistics are taken in fp32 over (N, H, W): mean and E[x^2], the
-    variance ``E[x^2] - E[x]^2`` clipped at 0; the same mean and variance
-    normalise the batch, ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
-    The running buffers are updated IN PLACE, under ``no_grad``, with the
-    biased batch variance: ``running = 0.9 * running + 0.1 * batch``.
-    Returns fp32.
+    The statistics are taken in fp32 over (N, H, W): mean and E[x^2] from
+    the sums and the count, the variance ``E[x^2] - E[x]^2`` clipped at 0;
+    the same mean and variance normalise the batch,
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. With ``over_ranks``
+    under data parallelism the sums and the count are the global batch's
+    (``parallel.sum_across_ranks``, whose gradient flows back to every rank;
+    the ranks' shares are equal), as the JAX step takes them over its
+    global array; ``nn.SyncBatchNorm``
+    would not do: it updates the running variance with the unbiased
+    estimate. The running buffers are updated IN PLACE, under ``no_grad``,
+    with the biased batch variance: ``running = 0.9 * running + 0.1 * batch``,
+    the same on every rank. Returns fp32.
     """
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    n = x32.numel() // x32.shape[1]
+    sums = torch.stack([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))])
+    if over_ranks:
+        sums, n = sum_across_ranks(sums), n * world_size()
+    mean = sums[0] / n
+    var = (sums[1] / n - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
@@ -62,7 +73,12 @@ def default_hidden_dims(num_vars: int) -> Tuple[int, ...]:
 class ConvTrunk(nn.Module):
     """The Conv-BN-LeakyReLU stride-2 stack under ``encoder.{i}.{0,1}``
     (``causaldiffae_tpu/models/encoder.py:42-57``); :meth:`trunk` returns the
-    last stage's activations, NCHW, fp32."""
+    last stage's activations, NCHW, fp32. ``stats_over_ranks``: whether its
+    train-mode statistics are the global batch's under data parallelism
+    (the UNet's encoder, which the DDP train step runs), or each rank's own
+    (the probe, which one rank trains alone)."""
+
+    stats_over_ranks = False
 
     def __init__(self, in_channels: int, image_size: int, num_vars: int,
                  hidden_dims: Optional[Tuple[int, ...]], dtype: torch.dtype):
@@ -89,7 +105,7 @@ class ConvTrunk(nn.Module):
             bn = block[1]
             h = conv(block[0], h, self.dtype)
             if self.training:
-                h = batch_norm_train(h, bn)
+                h = batch_norm_train(h, bn, self.stats_over_ranks)
             else:
                 h = F.batch_norm(h.float(), bn.running_mean, bn.running_var, bn.weight,
                                  bn.bias, training=False, eps=bn.eps)
@@ -99,6 +115,8 @@ class ConvTrunk(nn.Module):
 
 class GaussianConvEncoder(ConvTrunk):
     """Encoder q(u | x0) returning (mu, var)."""
+
+    stats_over_ranks = True
 
     def __init__(self, in_channels: int, image_size: int, latent_dim: int, num_vars: int = 4,
                  hidden_dims: Optional[Tuple[int, ...]] = None,

@@ -11,7 +11,7 @@ conv is zero-initialised. Attribute names follow the reference torch
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -116,13 +116,21 @@ class Downsample(nn.Module):
 class ResBlock(nn.Module):
     """Residual block with (scale-shift) GroupNorm timestep conditioning.
 
-    ``causaldiffae_tpu/models/layers.py:191-235``; dropout is a no-op at
-    inference and is kept only as the placeholder the reference's key
-    numbering needs (``out_layers.2``).
+    ``causaldiffae_tpu/models/layers.py:191-235``. Dropout (``out_layers.2``,
+    rate ``dropout``) acts in train mode only, after the second GroupNorm +
+    SiLU and before the zero-initialised conv, as flax's ``nn.Dropout``:
+    kept entries are divided by the keep probability in h's dtype (bf16 in
+    the bf16 torso), the others zeroed. Its mask does not come from torch's
+    global RNG: ``forward`` takes ``drop``, a callable that returns the keep
+    mask (0/1) for h's shape. The UNet hands every ResBlock the same one, so
+    it is called once per block in the order the blocks run; the train step
+    draws from its (seed, step) generator through it, and a test replays
+    flax's masks through it.
     """
 
     def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
-                 use_scale_shift_norm: bool = False, dtype: torch.dtype = torch.float32):
+                 use_scale_shift_norm: bool = False, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         out_ch = out_channels or channels
         self.channels = channels
@@ -133,13 +141,25 @@ class ResBlock(nn.Module):
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch if use_scale_shift_norm else out_ch))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(0.0), conv3x3(out_ch, out_ch, zero_init=True))
+            GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(dropout),
+            conv3x3(out_ch, out_ch, zero_init=True))
         if out_ch == channels:
             self.skip_connection = nn.Identity()
         else:
             self.skip_connection = nn.Conv2d(channels, out_ch, 1)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def dropout(self, h: torch.Tensor, drop: Optional[Callable[[torch.Size], torch.Tensor]]):
+        rate = self.out_layers[2].p
+        if not (self.training and rate > 0):
+            return h
+        if drop is None:
+            raise ValueError("a ResBlock with dropout in train mode needs its mask source")
+        keep = drop(h.shape).to(device=h.device, dtype=torch.bool)
+        keep_prob = torch.tensor(1.0 - rate, dtype=h.dtype)
+        return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                drop: Optional[Callable[[torch.Size], torch.Tensor]] = None) -> torch.Tensor:
         dt = self.dtype
         h = self.in_layers[0](x, silu_after=True)
         h = conv(self.in_layers[2], h, dt)
@@ -150,7 +170,7 @@ class ResBlock(nn.Module):
         else:
             h = h + emb_out[:, :, None, None]
             h = self.out_layers[0](h, silu_after=True)
-        h = conv(self.out_layers[3], h, dt)
+        h = conv(self.out_layers[3], self.dropout(h, drop), dt)
         if isinstance(self.skip_connection, nn.Conv2d):
             skip = conv(self.skip_connection, x, dt)
         else:

@@ -3,16 +3,24 @@
 Port of ``causaldiffae_tpu/models/unet.py:57-277``: ``denoise``, ``encode``,
 ``causalize``, ``encode_and_causalize`` and the training forward
 (``forward``, the counterpart of ``__call__``). ``feature_vectors`` and
-``SuperResUNet`` belong to later slices. The encoder's BatchNorm follows the
-module's mode: ``model.train()`` normalises with the batch's statistics and
-updates the running ones (``models/encoder.py``).
+``SuperResUNet`` belong to later slices. The module's mode stands for the
+JAX package's ``train`` flag: ``model.train()`` normalises the encoder's
+BatchNorm with the batch's statistics and updates the running ones
+(``models/encoder.py``), and turns the ResBlocks' dropout on.
+
+With ``flow_based`` the model holds the flow prior ``causal_flow`` and no
+SCM ``causal_mask``; with ``causal_modeling`` too, the training forward
+takes z_post from the flow and the representation KL's mask from the flow's
+log-determinant. A flow model cannot be evaluated: ``causalize`` raises, as
+the JAX package's ``encode_and_causalize`` does (``unet.py:228-242`` calls
+the ``causal_mask`` that a flow model lacks).
 
 Public methods take and return NHWC images, as the JAX package's do; the
 blocks run NCHW inside. The module tree follows the reference torch
 ``state_dict`` keys (``time_embed``, ``label_emb``, ``input_blocks.{i}.{j}``,
 ``middle_block``, ``output_blocks``, ``out``, ``rep_emb``, ``up_emb``,
-``causal_mask``), so reference ``.pt`` files and flax weights carried by
-``utils/weights.py`` load with ``strict=True``.
+``causal_mask``, ``causal_flow``), so reference ``.pt`` files and flax
+weights carried by ``utils/weights.py`` load with ``strict=True``.
 
 Cast points kept from the JAX package: the embedding is computed in fp32
 (time, label and ``up_emb`` denses) and then cast to the compute dtype; h is
@@ -22,15 +30,16 @@ runs in fp32.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..parallel.collectives import sum_across_ranks, world_size
 from .attention import AttentionBlock
 from .encoder import GaussianConvEncoder
 from .layers import Downsample, GroupNorm32, ResBlock, Upsample, conv, conv3x3, silu, timestep_embedding
-from .scm import CausalModeling
+from .scm import CausalModeling, MultivariateCausalFlow
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -49,6 +58,7 @@ class CausalUNet(nn.Module):
                  channel_mult: Tuple[int, ...] = (1, 2, 4, 8), image_size: int = 28,
                  num_classes: Optional[int] = None, c_dim: Optional[int] = None,
                  rep_dim: Optional[int] = None, causal_modeling: bool = False,
+                 flow_based: bool = False, dropout: float = 0.0,
                  num_heads: int = 1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = False, n_vars: int = 4,
                  adjacency=None, learn_adjacency: bool = False, masking: bool = False,
@@ -60,6 +70,8 @@ class CausalUNet(nn.Module):
         self.c_dim = c_dim
         self.rep_dim = rep_dim
         self.causal_modeling = causal_modeling
+        self.flow_based = flow_based
+        self.dropout = dropout
         self.masking = masking
         self.drop_prob = drop_prob
         self.reparam_var_scale = reparam_var_scale
@@ -77,11 +89,16 @@ class CausalUNet(nn.Module):
             self.rep_emb = GaussianConvEncoder(in_channels, image_size, rep_dim,
                                                num_vars=n_vars, dtype=dtype)
             self.up_emb = nn.Linear(rep_dim, ted)
-        if causal_modeling:
+        if causal_modeling and not flow_based:
             self.causal_mask = CausalModeling(rep_dim, n_vars, adjacency, learn_adjacency)
+        if flow_based:
+            self.causal_flow = MultivariateCausalFlow(n_vars, rep_dim // n_vars)
+            if causal_modeling:  # the flow's conditioning masks, C = I - A
+                A = torch.tensor(adjacency, dtype=torch.float32)
+                self.register_buffer("flow_C", torch.eye(n_vars) - A, persistent=False)
 
         def res(ch_in, ch_out):
-            return ResBlock(ch_in, ted, ch_out, use_scale_shift_norm, dtype)
+            return ResBlock(ch_in, ted, ch_out, use_scale_shift_norm, dtype, dropout)
 
         def attn(ch, heads):
             return AttentionBlock(ch, heads, use_kernels, dtype)
@@ -126,10 +143,10 @@ class CausalUNet(nn.Module):
                                  conv3x3(model_channels, out_channels, zero_init=True))
 
     # ------------------------------------------------------------------ #
-    def _apply_seq(self, modules, h, emb):
+    def _apply_seq(self, modules, h, emb, drop):
         for m in modules:
             if isinstance(m, ResBlock):
-                h = m(h, emb)
+                h = m(h, emb, drop)
             elif isinstance(m, nn.Conv2d):
                 h = conv(m, h, self.dtype)
             else:
@@ -151,18 +168,22 @@ class CausalUNet(nn.Module):
         return emb
 
     # ------------------------------------------------------------------ #
-    def denoise(self, x, t, y=None, c=None, z=None):
-        """eps prediction given explicit conditioning; x and eps are NHWC."""
+    def denoise(self, x, t, y=None, c=None, z=None, *,
+                drop: Optional[Callable[[torch.Size], torch.Tensor]] = None):
+        """eps prediction given explicit conditioning; x and eps are NHWC.
+
+        In train mode with dropout, ``drop(shape)`` gives each ResBlock's
+        keep mask, in the order the blocks run (``layers.ResBlock``)."""
         emb = self._embed(t, y, c, z).to(self.dtype)
         h = _nchw(x).to(self.dtype)
         hs = []
         for blocks in self.input_blocks:
-            h = self._apply_seq(blocks, h, emb)
+            h = self._apply_seq(blocks, h, emb, drop)
             hs.append(h)
-        h = self._apply_seq(self.middle_block, h, emb)
+        h = self._apply_seq(self.middle_block, h, emb, drop)
         for blocks in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
-            h = self._apply_seq(blocks, h, emb)
+            h = self._apply_seq(blocks, h, emb, drop)
         h = h.to(x.dtype)
         h = self.out[0](h, silu_after=True)
         return _nhwc(conv(self.out[2], h, torch.float32))
@@ -173,6 +194,10 @@ class CausalUNet(nn.Module):
 
     def causalize(self, mu):
         """SCM pass u -> z_post (masking + per-var MLPs + add-back-noise)."""
+        if self.flow_based:
+            raise AttributeError("a flow-prior model (flow_based=True) has no SCM causal_mask "
+                                 "to causalize with, so it cannot be evaluated; the JAX "
+                                 "package's encode_and_causalize fails the same way")
         return self.causal_mask(mu)
 
     def encode_and_causalize(self, x_start, *, sample: bool = True,
@@ -193,30 +218,48 @@ class CausalUNet(nn.Module):
         v = torch.full_like(z_post, self.reparam_var_scale)
         return mu, var, z_post, z_post + torch.sqrt(v) * noise
 
+    def flow_prior(self, mu):
+        """(z_post, mask) of the flow prior: z_post = flow(mu, C) and the
+        scalar mask -mean(log_det) of its reverse pass, the mean over the
+        global batch under data parallelism (``parallel.sum_across_ranks``,
+        whose gradient reaches every rank's flow; the ranks' shares are equal)."""
+        z_post, _ = self.causal_flow.flow(mu, self.flow_C)
+        log_det, _ = self.causal_flow.reverse(z_post, self.flow_C)
+        return z_post, -sum_across_ranks(log_det.sum()) / (len(log_det) * world_size())
+
     def forward(self, x, t, y=None, c=None, x_start=None, z=None, *,
                 rep_noise: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                drop: Optional[Callable[[torch.Size], torch.Tensor]] = None):
         """Training forward: returns ``(eps, aux)``, aux = {mu, var, z_post, mask}.
 
-        With a representation and no ``z``: encode x_start, run the SCM, and
+        With a representation and no ``z``: encode x_start, run the SCM (or
+        the flow prior, whose scalar ``-mean(log_det)`` is then the mask), and
         draw z ~ N(z_post, var * reparam_var_scale) (the train-time variance
         is the encoder's, scaled). With ``masking`` a Bernoulli(1 - drop_prob)
-        keep-mask per sample gates both z and z_post. ``rep_noise`` (the
-        reparameterization's standard normal draw, z_post's shape) and
-        ``keep`` ([B] of 0/1) are used when given, else drawn from
-        ``generator``. x, x_start and eps are NHWC.
+        keep-mask per sample gates both z and z_post and is the mask.
+        ``rep_noise`` (the reparameterization's standard normal draw, z_post's
+        shape), ``keep`` ([B] of 0/1) and the dropout masks (``drop``, see
+        :meth:`denoise`) are used when given, else drawn from ``generator``.
+        x, x_start and eps are NHWC.
         """
         aux = {}
+        if drop is None:
+            drop = lambda shape: torch.empty(  # noqa: E731
+                shape, device=x.device).bernoulli_(1.0 - self.dropout, generator=generator)
         if self.rep_dim is not None and z is None:
             mu, var = self.encode(x_start)
-            z_post = self.causalize(mu) if self.causal_modeling else mu
+            mask = None
+            if self.causal_modeling and self.flow_based:
+                z_post, mask = self.flow_prior(mu)
+            else:
+                z_post = self.causalize(mu) if self.causal_modeling else mu
             if rep_noise is None:
                 rep_noise = torch.randn(z_post.shape, generator=generator,
                                         device=z_post.device, dtype=z_post.dtype)
             z = z_post + torch.sqrt(var * self.reparam_var_scale) * rep_noise
             if not self.causal_modeling:
                 z_post = None
-            mask = None
             if self.masking:
                 if keep is None:
                     keep = torch.bernoulli(torch.full((z.shape[0],), 1.0 - self.drop_prob,
@@ -227,4 +270,4 @@ class CausalUNet(nn.Module):
                     z_post = z_post * keep[:, None]
                 mask = keep
             aux = {"mu": mu, "var": var, "z_post": z_post, "mask": mask}
-        return self.denoise(x, t, y=y, c=c, z=z), aux
+        return self.denoise(x, t, y=y, c=c, z=z, drop=drop), aux

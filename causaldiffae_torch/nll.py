@@ -7,7 +7,10 @@ each), conditioned on z = z_post + sqrt(reparam_var_scale) * noise from the
 encoder for a model with a representation. Writes ``vb_terms.npz``,
 ``mse_terms.npz`` and ``xstart_mse_terms.npz`` (``[N, T]``, ascending t)
 and prints ``{"total_bpd": ...}``. Raw (non-EMA) weights, as the JAX CLI
-evaluates them. Single process.
+evaluates them. Across W ranks (``torchrun``) each rank sweeps its
+``[rank::W]`` shard of the pool for ``ceil(num_samples / W)`` samples, the
+total is the mean of the ranks' means, and the primary writes the gathered
+terms (``scripts/nll.py:103-130``).
 
 Usage:
   python -m causaldiffae_torch.nll --ckpt_dir ckpt/morpho --num_samples 64 --batch_size 8
@@ -28,6 +31,7 @@ from .config import create_diffusion
 from .data import load_split, synthetic_dataset
 from .diffusion import calc_bpd_loop
 from .evals.cli import restore_model, start
+from .parallel import gather_across_ranks, is_primary, mean_across_ranks, rank, world_size
 from .utils import logger
 
 
@@ -52,21 +56,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> float:
     args = parse_args(argv)
-    start(args.device)
-    cfg, model, _ = restore_model(args.preset, args.ckpt_dir, False, args.seed, args.device)
+    device = start(args.device, across_ranks=True)
+    cfg, model, _ = restore_model(args.preset, args.ckpt_dir, False, args.seed, device)
     diffusion = create_diffusion(cfg)  # the full process
     if args.synthetic or not args.data_dir:
         pool = synthetic_dataset(cfg.dataset, max(args.num_samples, 64), seed=args.seed,
                                  image_size=cfg.image_size)
     else:
         pool = load_split(cfg.dataset, args.data_dir, "test")
-    device, bs = args.device, args.batch_size
+    pool = {k: v[rank()::world_size()] for k, v in pool.items()}  # this rank's shard
+    bs = args.batch_size
     gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     terms = {"vb": [], "mse": [], "xstart_mse": []}
     bpd = []
     n = len(pool["image"])
-    for i in range(max(-(-args.num_samples // bs), 1)):
+    per_rank = -(-args.num_samples // world_size())
+    for i in range(max(-(-per_rank // bs), 1)):
         t0 = time.perf_counter()
         idx = (np.arange(bs) + i * bs) % n
         x = to(pool["image"][idx])
@@ -76,7 +82,8 @@ def main(argv: Optional[List[str]] = None) -> float:
             z = (model.encode_and_causalize(x, generator=gen(1234 + i))[3]
                  if cfg.rep_cond else None)
             out = calc_bpd_loop(diffusion, lambda xx, tt: model.denoise(xx, tt, y=y, c=c, z=z),
-                                x, gen(args.seed + i), clip_denoised=args.clip_denoised)
+                                x, gen(args.seed + i + (rank() << 32)),
+                                clip_denoised=args.clip_denoised)
         bpd.append(out["total_bpd"].cpu().numpy())  # waits for the device
         for k in terms:
             terms[k].append(out[k].cpu().numpy())
@@ -84,11 +91,14 @@ def main(argv: Optional[List[str]] = None) -> float:
         logger.log(f"done {(i + 1) * bs} samples: bpd so far = {np.concatenate(bpd).mean():.4f}; "
                    f"batch {seconds:.3f} s ({1e3 * seconds / diffusion.num_timesteps:.2f} ms "
                    f"per UNet call)")
-    total = float(np.concatenate(bpd).mean())
+    total = mean_across_ranks(float(np.concatenate(bpd).mean()))
     logger.log(f"total_bpd = {total:.5f}")
-    os.makedirs(args.out_dir, exist_ok=True)
-    for name, parts in terms.items():
-        np.savez(os.path.join(args.out_dir, f"{name}_terms.npz"), np.concatenate(parts, 0))
+    gathered = {name: gather_across_ranks(np.concatenate(parts, 0))
+                for name, parts in terms.items()}
+    if is_primary():
+        os.makedirs(args.out_dir, exist_ok=True)
+        for name, value in gathered.items():
+            np.savez(os.path.join(args.out_dir, f"{name}_terms.npz"), value)
     print(json.dumps({"total_bpd": total}), flush=True)
     return total
 

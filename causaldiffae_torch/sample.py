@@ -5,7 +5,9 @@ The port's counterpart of ``scripts/sample.py``, through
 ``--num_samples`` are drawn, conditioned on class labels ``arange(B) % 10``
 and a zero context as the preset needs them. Writes
 ``samples_<N>x<H>x<W>.npz`` (``arr_0``, NHWC) and ``grid.png``; prints
-``{"path", "shape", "finite"}``.
+``{"path", "shape", "finite"}``. Across W ranks (``torchrun``) each rank
+draws ``ceil(num_samples / W)`` of them from its own streams, and the
+primary writes the gathered samples (``scripts/sample.py:83-104``).
 
 Usage:
   python -m causaldiffae_torch.sample --ckpt_dir ckpt/morpho --num_samples 64 \\
@@ -26,6 +28,7 @@ import torch
 from .config import DATA_SCALES, create_diffusion
 from .evals import make_prior_sample_fn
 from .evals.cli import restore_model, start
+from .parallel import gather_across_ranks, is_primary, rank, world_size
 from .serve import str2bool
 from .utils import logger
 from .utils.images import save_grid
@@ -57,13 +60,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> str:
     args = parse_args(argv)
-    start(args.device)
-    cfg, model, _ = restore_model(args.preset, args.ckpt_dir, args.use_ema, args.seed,
-                                  args.device)
+    device = start(args.device, across_ranks=True)
+    cfg, model, _ = restore_model(args.preset, args.ckpt_dir, args.use_ema, args.seed, device)
     fn = make_prior_sample_fn(cfg, model, create_diffusion(cfg, eval_mode=True),
                               use_ddim=args.use_ddim, sampler=args.sampler,
                               sample_steps=args.sample_steps)
-    bs, device = args.batch_size, args.device
+    bs = args.batch_size
     shape = (bs, cfg.image_size, cfg.image_size, cfg.in_channels)
     cond = {}
     if cfg.class_cond:
@@ -71,17 +73,19 @@ def main(argv: Optional[List[str]] = None) -> str:
     if cfg.context_cond:
         cond["c"] = torch.zeros(bs, len(DATA_SCALES[cfg.dataset]), device=device)
     images = []
-    for i in range(-(-args.num_samples // bs)):
+    per_rank = -(-args.num_samples // world_size())
+    for i in range(-(-per_rank // bs)):
         t0 = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(
-            args.seed * 1_000_003 + BATCH_STREAM + i)
+        gen = torch.Generator(device=device).manual_seed(  # each rank its own streams
+            args.seed * 1_000_003 + BATCH_STREAM + i + (rank() << 32))
         images.append(fn(shape, cond, gen, device=device).cpu().numpy())
         logger.log(f"created {len(images) * bs} samples; batch {time.perf_counter() - t0:.3f} s")
-    arr = np.concatenate(images, 0)[:args.num_samples]
-    os.makedirs(args.out_dir, exist_ok=True)
+    arr = gather_across_ranks(np.concatenate(images, 0))[:args.num_samples]
     path = os.path.join(args.out_dir, f"samples_{arr.shape[0]}x{arr.shape[1]}x{arr.shape[2]}.npz")
-    np.savez(path, arr_0=arr)
-    save_grid(arr[:64], os.path.join(args.out_dir, "grid.png"))
+    if is_primary():
+        os.makedirs(args.out_dir, exist_ok=True)
+        np.savez(path, arr_0=arr)
+        save_grid(arr[:64], os.path.join(args.out_dir, "grid.png"))
     print(json.dumps({"path": path, "shape": list(arr.shape),
                       "finite": bool(np.isfinite(arr).all())}), flush=True)
     return path

@@ -17,12 +17,22 @@ from the latest one unless ``--no_resume``, and a checkpoint wins over
 attention kernels are built at start-up, and cuDNN is held to deterministic
 algorithms (``utils.determinism``), so that a rerun gives the same bits.
 
+Data parallelism: started by ``torchrun --nproc_per_node N``, every rank
+joins the process group (NCCL with one card per local rank,
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``), builds the kernels, feeds
+its shard of the data and trains the DDP-wrapped model (``parallel/``).
+``--batch_size`` stays the GLOBAL batch, split evenly over the ranks, and W
+ranks take the step one process at that batch takes; the primary rank
+alone logs and writes checkpoints.
+
 Usage:
   python -m causaldiffae_torch.train --preset circuit_causaldae --synthetic \\
       --logdir runs/circuit --total_steps 20000
   python -m causaldiffae_torch.train --preset pendulum_causaldae --data_dir data/pendulum \\
       --ckpt_dir ckpt/pendulum
   python -m causaldiffae_torch.train ... --device cpu
+  torchrun --nproc_per_node 8 -m causaldiffae_torch.train --preset morphomnist_causaldae \
+      --synthetic --batch_size 128 --ckpt_dir ckpt/morpho
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 from .config import create_diffusion, get_config
 from .data import load_data, synthetic_iterator
 from .ops import _build
+from .parallel import init_from_env
 from .serve import build_model, str2bool
 from .training import run_training
 from .training.state import TrainState
@@ -82,18 +93,18 @@ def main(argv: Optional[List[str]] = None) -> Tuple[TrainState, List[dict]]:
     cfg = get_config(args.preset)
     overrides = {k: v for k, v in vars(args).items() if v is not None and hasattr(cfg, k)}
     cfg = cfg.replace(**overrides)
-    if args.device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
-        if cfg.use_kernels and cfg.use_bf16:  # at start-up, not inside the first step
-            _build.build("attention_fwd")
-            _build.build("attention_bwd")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
+    device = init_from_env(args.device)  # under torchrun: this rank's card
+    if device.startswith("cuda") and cfg.use_kernels and cfg.use_bf16:
+        _build.build("attention_fwd")  # at start-up, not inside the first step
+        _build.build("attention_bwd")
     formats = os.environ.get("OPENAI_LOG_FORMAT", "log,csv,json").split(",")
     logger.configure(dir=args.logdir, format_strs=formats if args.logdir else [])
     logger.log(f"config: {cfg}")
     ckpt_dir = args.ckpt_dir or (os.path.join(args.logdir, "checkpoints", cfg.name)
                                  if args.logdir else None)
-    model = build_model(cfg, args.init_from, cfg.seed, args.device)
+    model = build_model(cfg, args.init_from, cfg.seed, device)
     if args.data_dir and not args.synthetic:
         data = load_data(data_dir=args.data_dir, batch_size=cfg.batch_size,
                          image_size=cfg.image_size, class_cond=cfg.class_cond, seed=cfg.seed)
@@ -103,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[TrainState, List[dict]]:
     try:
         return run_training(cfg, model, create_diffusion(cfg), data,
                             total_steps=cfg.total_steps, log_interval=cfg.log_interval,
-                            device=args.device, ckpt_dir=ckpt_dir, resume=not args.no_resume)
+                            device=device, ckpt_dir=ckpt_dir, resume=not args.no_resume)
     finally:
         logger.close()
 

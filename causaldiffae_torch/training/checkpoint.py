@@ -9,7 +9,8 @@ manager given one, the config the state was trained with (its fields), from
 which the serve CLI rebuilds the model and the diffusion. A save
 writes a temporary name and ``os.replace``-s it into place, so a save cut
 off by a signal leaves the previous checkpoint whole. ``restore`` loads onto
-the state's own tensors, so onto the model's device.
+the state's own tensors, so onto the model's device. Under data
+parallelism the primary rank writes and every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..parallel.collectives import barrier, is_primary
 from .state import TrainState
 
 __all__ = ["CheckpointManager"]
@@ -56,7 +58,17 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState) -> str:
-        """Write ``state`` as ``step``'s checkpoint; keep the newest ``max_to_keep``."""
+        """Write ``state`` as ``step``'s checkpoint; keep the newest ``max_to_keep``.
+
+        Under data parallelism every rank holds the same state: the primary
+        writes it, and every rank returns once it is in place."""
+        path = self._path(step)
+        if is_primary():
+            self._write(step, state, path)
+        barrier()
+        return path
+
+    def _write(self, step: int, state: TrainState, path: str) -> None:
         payload = {
             "step": int(step),
             "model": state.model.state_dict(),
@@ -65,13 +77,11 @@ class CheckpointManager:
             "sampler_state": _sampler_to_tensors(state.sampler_state),
             "config": None if self.config is None else dataclasses.asdict(self.config),
         }
-        path = self._path(step)
         tmp = os.path.join(self.directory, f".step_{step}.pt.tmp")
         torch.save(payload, tmp)
         os.replace(tmp, path)
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
-        return path
 
     def load(self, step: Optional[int] = None) -> dict:
         """``step``'s (default: the latest) checkpoint as saved, on the CPU."""

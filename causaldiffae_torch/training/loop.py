@@ -18,6 +18,14 @@ from the latest checkpoint.
 - SIGTERM/SIGINT set a flag; the loop saves at the top of the next step and
   returns, restoring the old handlers. ``DIFFUSION_TRAINING_TEST`` in the
   environment makes it return after the first save.
+- Data parallelism: under ``torch.distributed`` (``torchrun``; see
+  ``parallel/``) the model runs wrapped in ``DistributedDataParallel`` and
+  ``data`` yields this rank's ``batch_size / W`` rows. The metrics are
+  reduced over the ranks at the log interval (one all-reduce, read back
+  late as above), the primary rank alone logs and writes checkpoints, and
+  every rank resumes from the same one. A signal reaches the ranks at
+  different steps, so they agree on it through that reduction and stop
+  together at the step after the next log interval that reads it.
 
 Each record goes to the logger (``logkv_mean``/``dumpkvs``: progress.csv,
 progress.json, log.txt as configured) and, as one JSON line, to stdout. Its
@@ -27,6 +35,7 @@ before it.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import signal
@@ -36,13 +45,15 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from ..parallel import is_primary, reduce_metrics, world_size
 from ..utils import logger
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .train_step import make_train_step
 
-__all__ = ["run_training", "to_device"]
+__all__ = ["run_training", "to_device", "wrap_model"]
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -98,7 +109,32 @@ def _start_readback(metrics: Dict[str, torch.Tensor]):
 
 def _note(msg: str) -> None:
     logger.log(msg)
-    print(msg, file=sys.stderr, flush=True)
+    if is_primary():
+        print(msg, file=sys.stderr, flush=True)
+
+
+def wrap_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
+    """``model`` in ``DistributedDataParallel`` under ``torch.distributed``,
+    else ``model``.
+
+    Buffers are not synced at each forward (``broadcast_buffers=False``):
+    the encoder's BatchNorm statistics are the global batch's on every rank
+    (``models/encoder.py``), so its running buffers agree without DDP
+    rewriting them from rank 0 at each forward.
+    ``find_unused_parameters`` only where a config leaves parameters out of
+    the loss, or DDP's reducer would wait for their gradients: the flow
+    prior built (``flow_based``) but not used (no ``causal_modeling``)."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        return model
+    dev = torch.device(device)
+    ids = [dev.index if dev.index is not None else torch.cuda.current_device()] \
+        if dev.type == "cuda" else None
+    # torch 2.13 renames the flag (a FutureWarning for the old name)
+    no_sync = ("forward_sync_buffers" if "forward_sync_buffers"
+               in inspect.signature(DistributedDataParallel).parameters else "broadcast_buffers")
+    return DistributedDataParallel(model, device_ids=ids, **{no_sync: False},
+                                   find_unused_parameters=cfg.flow_based
+                                   and not cfg.causal_modeling)
 
 
 def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str, np.ndarray]],
@@ -111,25 +147,21 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
 
     Weights already in ``model`` (from ``--init_from``) seed the state, EMA
     copies included; a checkpoint, when there is one, replaces them. Each
-    checkpoint records ``cfg``.
-
-    The loop runs in one process: it has no gradient all-reduce, so it
-    refuses to run under ``torch.distributed``, where every rank would
-    train a model of its own.
+    checkpoint records ``cfg``. Under ``torch.distributed`` every rank calls
+    this with the same model and config and its share of the data.
     """
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise RuntimeError("run_training is single-process: under torch.distributed each rank "
-                           "would train a model of its own")
     state = create_train_state(cfg, model)
     ckpt = CheckpointManager(ckpt_dir, config=cfg) if ckpt_dir else None
     if resume and ckpt is not None and ckpt.latest_step() is not None:
         ckpt.restore(state)
         _note(f"resumed from checkpoint at step {state.step}")
     resume_step = state.step
-    step_fn = make_train_step(cfg, model, diffusion, state.optimizer)
+    step_fn = make_train_step(cfg, wrap_model(cfg, model, device), diffusion, state.optimizer)
+    agree = world_size() > 1  # on a signal, through the reduced metrics
     batch_size = cfg.batch_size
     records: List[dict] = []
     pending = None   # (step, stamp, readback) of the last interval, not yet logged
+    stop = []        # the ranks agreed that one of them was signalled
     t_start = last = time.perf_counter()
     last_step = resume_step
 
@@ -142,6 +174,10 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
         if done is not None:
             done.synchronize()
         for k, v in zip(keys, host.tolist()):
+            if k == "signalled":
+                if v > 0:
+                    stop.append(at_step)
+                continue
             logger.logkv_mean(k, v)
         logger.logkv("step", at_step)
         logger.logkv("samples", at_step * batch_size)
@@ -151,7 +187,8 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
         last, last_step = stamp, at_step
         rec = {**logger.dumpkvs(), "device": str(device)}
         records.append(rec)
-        print(json.dumps(rec), flush=True)
+        if is_primary():
+            print(json.dumps(rec), flush=True)
 
     def save():
         ckpt.save(state.step, state)
@@ -169,7 +206,7 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
         next_batch = feed.fetch()
         while state.step < total_steps and (not cfg.lr_anneal_steps
                                             or state.step < cfg.lr_anneal_steps):
-            if preempted:
+            if stop or (preempted and not agree):
                 _note("preemption signal received - checkpointing and exiting")
                 log_pending()
                 if ckpt is not None:
@@ -179,7 +216,10 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
             next_batch = feed.fetch()
             if state.step % log_interval == 0 or state.step == total_steps:
                 stamp = time.perf_counter()
-                started = (state.step, stamp, _start_readback(metrics))
+                if agree:
+                    metrics["signalled"] = torch.full((), float(bool(preempted)),
+                                                      device=metrics["loss"].device)
+                started = (state.step, stamp, _start_readback(reduce_metrics(metrics)))
                 log_pending()
                 pending = started
             if ckpt is not None and state.step % cfg.save_interval == 0:

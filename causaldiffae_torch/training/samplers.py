@@ -5,7 +5,8 @@ Port of ``causaldiffae_tpu/training/samplers.py:26-92``: ``uniform`` and
 last 10 losses, once every timestep has 10). The loss-aware sampler's state
 is a small ``[num_timesteps, 10]`` history kept on the host as numpy, and
 its update pushes the batch's (t, loss) pairs one by one, so duplicate
-timesteps in one batch behave as in the JAX package's sequential scan.
+timesteps in one batch behave as in the JAX package's sequential scan;
+under data parallelism it gathers every rank's pairs first.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import gather_across_ranks, world_size
 
 __all__ = ["init_sampler_state", "sampler_weights", "sample_timesteps",
            "timestep_weights", "update_sampler_state"]
@@ -68,16 +71,27 @@ def sample_timesteps(state: SamplerState, num_timesteps: int, batch_size: int,
     return t, timestep_weights(state, num_timesteps, t)
 
 
-def update_sampler_state(state: SamplerState, t: torch.Tensor,
-                         losses: torch.Tensor) -> SamplerState:
+def update_sampler_state(state: SamplerState, t: torch.Tensor, losses: torch.Tensor,
+                         rows: Optional[np.ndarray] = None) -> SamplerState:
     """Push each (t, loss) pair, in batch order, into its timestep's ring
     history: append until the row holds ``HISTORY_PER_TERM`` losses, then
-    shift out the oldest. Reads t and the losses back to the host."""
+    shift out the oldest. Reads t and the losses back to the host.
+
+    Under data parallelism each rank passes its own rows' pairs and their
+    places in the global batch (``rows``): every rank gathers all ranks'
+    pairs and pushes them in global batch order, so that every rank's
+    history is the one a single process at the global batch keeps
+    (``causaldiffae_tpu/training/samplers.py:5-9``)."""
     if state is None:
         return None
+    t_np = t.cpu().numpy()
+    l_np = losses.detach().float().cpu().numpy()
+    if rows is not None and world_size() > 1:
+        order = np.argsort(gather_across_ranks(np.asarray(rows, np.int64)), kind="stable")
+        t_np, l_np = gather_across_ranks(t_np)[order], gather_across_ranks(l_np)[order]
     history, counts = state["history"].copy(), state["counts"].copy()
     size = history.shape[1]
-    for ti, li in zip(t.cpu().numpy().tolist(), losses.detach().float().cpu().numpy().tolist()):
+    for ti, li in zip(t_np.tolist(), l_np.tolist()):
         if counts[ti] == size:
             history[ti, :-1] = history[ti, 1:]
             history[ti, -1] = li

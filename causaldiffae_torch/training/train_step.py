@@ -6,7 +6,10 @@ the attention backward kernel on the card), the global grad norm, a step
 skipped on a non-finite grad norm, AdamW, the EMA and the loss-aware
 sampler's update. Microbatching sums the gradients of the per-microbatch
 MEAN losses, and the encoder's BatchNorm running statistics thread through
-the microbatches in order (they update in place on each forward).
+the microbatches in order (they update in place on each forward). Under
+data parallelism (``make_train_step`` on a DDP-wrapped model) W ranks take
+the step one process at the global batch takes: the same global draws,
+each rank its rows, and every batch reduction global.
 
 The metrics come back as tensors on the device, so a step does not
 synchronise the host; the loop reads them at its log interval. (The
@@ -16,11 +19,14 @@ back every step for its host-side history.)
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..diffusion.process import GaussianDiffusion
+from ..parallel import rank, rank_rows, world_size
 from .samplers import sample_timesteps, timestep_weights, update_sampler_state
 from .state import TrainState, anneal_lr_, ema_rates, kl_weight_for_step
 
@@ -56,11 +62,13 @@ def compute_losses(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                    images: torch.Tensor, cond: Dict[str, torch.Tensor], t: torch.Tensor,
                    kl_weight: float, *, noise: Optional[torch.Tensor] = None,
                    rep_noise: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                   drop: Optional[Callable[[torch.Size], torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """The loss terms of one (micro)batch, as the JAX ``loss_fn`` computes them.
 
     Draws not given come from ``generator``: the diffusion noise first,
-    then, inside the model, the reparameterization noise and the keep-mask.
+    then, inside the model, the reparameterization noise, the keep-mask and
+    the dropout masks (``drop``, one per ResBlock).
     """
     def forward(x_t, t_model):
         kwargs = {}
@@ -70,68 +78,115 @@ def compute_losses(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
             kwargs["c"] = cond["c"]
         if cfg.rep_cond:
             kwargs["x_start"] = images
-        return model(x_t, t_model, rep_noise=rep_noise, keep=keep, generator=generator, **kwargs)
+        return model(x_t, t_model, rep_noise=rep_noise, keep=keep, drop=drop,
+                     generator=generator, **kwargs)
 
     return diffusion.training_losses(forward, images, t, c=cond.get("c"), rep_cond=cfg.rep_cond,
                                      causal_modeling=cfg.causal_modeling, kl_weight=kl_weight,
                                      noise=noise, generator=generator)
 
 
+def _rank_draws(cfg, draws, gen, micro: int, k: int, mine: slice, image_shape,
+                dropout: float, device):
+    """This rank's share (``mine``) of microbatch ``k``'s draws, each drawn
+    over the GLOBAL microbatch of ``micro`` rows in the order one process
+    draws them: the diffusion noise, then (with a representation) the
+    reparameterization noise and (with ``masking``) the keep-mask, from
+    ``draws`` when handed in, else from ``gen``; and the dropout mask
+    source, which draws from ``gen`` as the ResBlocks run."""
+    rows = slice(k * micro, (k + 1) * micro)
+
+    def draw(key, make):
+        return (draws[key][rows] if key in draws else make())[mine]
+
+    out = {"noise": draw("noise", lambda: torch.randn((micro, *image_shape), generator=gen,
+                                                      device=device))}
+    if cfg.rep_cond:
+        out["rep_noise"] = draw("rep_noise", lambda: torch.randn(
+            (micro, cfg.rep_dim), generator=gen, device=device))
+        if cfg.masking:
+            out["keep"] = draw("keep", lambda: torch.bernoulli(
+                torch.full((micro,), 1.0 - cfg.drop_prob, device=device), generator=gen))
+    out["drop"] = lambda shape: torch.empty((micro, *shape[1:]), device=device).bernoulli_(
+        1.0 - dropout, generator=gen)[mine]
+    return out
+
+
 def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """Build ``train_step(state, batch, *, draws=None) -> metrics``.
 
-    ``batch`` holds 'image' [B, H, W, C] and, as the config needs them, 'y'
-    [B] and 'c' [B, n_vars], on the model's device. ``draws`` may hand in
-    every random draw for the whole batch: 't' [B], 'noise' (the image's
-    shape), 'rep_noise' [B, rep_dim] and 'keep' [B]; each microbatch takes
-    its slice. Otherwise they come from a generator seeded from
-    ``step_seed(cfg.seed, state.step)``. The step updates ``state`` in place
-    and returns the metrics as device tensors.
+    ``model`` is the CausalUNet, or under data parallelism its
+    ``DistributedDataParallel`` wrapper. ``batch`` holds 'image' [n, H, W, C]
+    and, as the config needs them, 'y' [n] and 'c' [n, n_vars], on the
+    model's device: the whole batch in one process, else this rank's share
+    of the global batch of B = n * W rows, the rows ``parallel.rank_rows``
+    names, in that order. ``draws`` may hand in every random draw for the
+    whole GLOBAL batch: 't' [B], 'noise' (the global image shape),
+    'rep_noise' [B, rep_dim] and 'keep' [B]. Otherwise they come from a
+    generator seeded from ``step_seed(cfg.seed, state.step)``, drawn at the
+    global batch's shapes on every rank, so that W ranks take the step one
+    process at B takes. The step updates ``state`` in place and returns the
+    metrics as device tensors, this rank's (``parallel.reduce_metrics``
+    makes them global).
+
+    Microbatching: a global microbatch holds ``cfg.microbatch`` rows, each
+    rank's share ``cfg.microbatch / W``; each rank sums the gradients of its
+    microbatches' mean losses (DDP all-reduces them after the last one,
+    the others run under ``no_sync``). Every batch reduction inside the
+    loss runs over the global (micro)batch (``parallel.sum_across_ranks``).
     """
+    ddp = isinstance(model, DistributedDataParallel)
+    base = model.module if ddp else model
     rates = [(r, float(r)) for r in ema_rates(cfg)]
-    named = list(model.named_parameters())
+    named = list(base.named_parameters())
     params = [p for _, p in named]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        model.train()
+        base.train()
         images = batch["image"]
-        B = images.shape[0]
+        n = images.shape[0]
+        W, r = world_size(), rank()
+        B = n * W
         device = images.device
         cond = {k: v for k, v in batch.items() if k != "image"}
         draws = dict(draws or {})
         if set(draws) - set(DRAW_KEYS):
             raise KeyError(f"unknown draws {sorted(set(draws) - set(DRAW_KEYS))}")
         gen = torch.Generator(device=device).manual_seed(step_seed(cfg.seed, state.step))
+        micro = cfg.microbatch if 0 < cfg.microbatch < B else B
+        share = micro // W
+        mine = slice(r * share, (r + 1) * share)  # of each global microbatch: rank_rows
 
         num_t = diffusion.num_timesteps
         if "t" in draws:
-            t = draws["t"]
-            weights = timestep_weights(state.sampler_state, num_t, t)
+            t_all = draws["t"]
+            weights_all = timestep_weights(state.sampler_state, num_t, t_all)
         else:
-            t, weights = sample_timesteps(state.sampler_state, num_t, B, gen, device)
+            t_all, weights_all = sample_timesteps(state.sampler_state, num_t, B, gen, device)
+        t, weights = (v.reshape(-1, micro)[:, mine].reshape(-1) for v in (t_all, weights_all))
         kl_weight = kl_weight_for_step(state.step, cfg.kl_anneal_steps)
 
-        micro = cfg.microbatch if 0 < cfg.microbatch < B else B
-        if B % micro:
-            raise ValueError(f"batch {B} is not a multiple of microbatch {micro}")
         optimizer.zero_grad(set_to_none=True)
         parts = []
-        for lo in range(0, B, micro):
-            sl = slice(lo, lo + micro)
-            terms = compute_losses(cfg, model, diffusion, images[sl],
-                                   {k: v[sl] for k, v in cond.items()}, t[sl], kl_weight,
-                                   generator=gen,
-                                   **{k: draws[k][sl] for k in DRAW_KEYS[1:] if k in draws})
-            (terms["loss"] * weights[sl]).mean().backward()
+        for i, lo in enumerate(range(0, n, share)):
+            sl = slice(lo, lo + share)
+            drawn = _rank_draws(cfg, draws, gen, micro, i, mine, images.shape[1:], base.dropout,
+                                device)
+            sync = not ddp or lo + share == n
+            with contextlib.nullcontext() if sync else model.no_sync():
+                terms = compute_losses(cfg, model, diffusion, images[sl],
+                                       {k: v[sl] for k, v in cond.items()}, t[sl], kl_weight,
+                                       generator=gen, **drawn)
+                (terms["loss"] * weights[sl]).mean().backward()
             parts.append({k: v.detach() for k, v in terms.items()})
         terms = {k: (torch.cat([p[k].reshape(-1) for p in parts]) if parts[0][k].ndim
                      else torch.stack([p[k] for p in parts]).mean()) for k in parts[0]}
 
-        loss_vec = terms["loss"].expand(B)
-        state.sampler_state = update_sampler_state(state.sampler_state, t, loss_vec)
-
+        loss_vec = terms["loss"].expand(n)
+        state.sampler_state = update_sampler_state(state.sampler_state, t, loss_vec,
+                                                   rank_rows(B, W, r, micro))
         for p in params:  # as jax.grad, every parameter has a gradient (zeros if unused)
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -169,7 +224,7 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                                                           device=device)
         for key in ("loss", "mse"):
             if key in terms:
-                vals = terms[key].expand(B) * weights
+                vals = terms[key].expand(n) * weights
                 for name, v in _quartile_means(t, vals, num_t).items():
                     metrics[f"{key}_{name}"] = v
         state.step += 1

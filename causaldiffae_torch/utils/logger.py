@@ -25,6 +25,8 @@ import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
+from ..parallel.collectives import is_primary
+
 __all__ = [
     "KVWriter",
     "HumanOutputFormat",
@@ -212,11 +214,13 @@ _CURRENT: Optional[Logger] = None
 def configure(dir: Optional[str] = None, format_strs: Optional[List[str]] = None,
               log_suffix: str = "") -> Logger:
     """Set up the global logger (reference `logger.py:442-472`: OPENAI_LOGDIR /
-    OPENAI_LOG_FORMAT envs honored), closing the one it replaces."""
+    OPENAI_LOG_FORMAT envs honored), closing the one it replaces. Under data
+    parallelism only the primary rank writes: the others' loggers keep the
+    values and write nothing, as the reference's non-zero ranks."""
     global _CURRENT
     if format_strs is None:
         format_strs = os.environ.get("OPENAI_LOG_FORMAT", "stdout,log,csv").split(",")
-    format_strs = [f for f in format_strs if f]
+    format_strs = [f for f in format_strs if f and is_primary()]
     if dir is None:
         dir = os.environ.get("OPENAI_LOGDIR")
     if dir is None and any(f not in STREAMS for f in format_strs):

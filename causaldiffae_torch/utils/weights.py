@@ -12,7 +12,9 @@ Layouts: Linear (in, out) -> (out, in); Conv2d (kh, kw, in, out) ->
 (out, in, kh, kw); the attention's qkv/proj_out dense -> Conv1d (out, in, 1);
 the encoder heads read the flattened trunk output, HWC-major in flax and
 C-major here, so their weights' input dimension is permuted; the stacked
-per-variable SCM weights (n, in, out) split into n Linear layers.
+per-variable SCM weights (n, in, out) split into n Linear layers; the flow
+prior's conditioners ``{s,t}_cond.Dense_{0,1,2}`` become
+``causal_flow.{s,t}_cond.{0,2,4}``.
 """
 
 from __future__ import annotations
@@ -155,7 +157,10 @@ def state_dict_from_flax(cfg, variables: Mapping[str, Any]) -> Dict[str, torch.T
             sd["causal_mask.A"] = _np(params["causal_mask"]["A"])
 
     if "causal_flow" in params:
-        raise NotImplementedError("the flow prior (causal_flow) is not ported yet")
+        for name in ("s_cond", "t_cond"):
+            mlp = params["causal_flow"][name]
+            for j, dense in ((0, "Dense_0"), (2, "Dense_1"), (4, "Dense_2")):
+                _linear(sd, f"causal_flow.{name}.{j}", mlp[dense])
 
     for flax_prefix, torch_prefix, kinds in unet_walk(cfg):
         for j, kind in enumerate(kinds):

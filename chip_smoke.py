@@ -43,9 +43,9 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    after (no forward launch writes lse), latency per batch, images per
    second and peak memory;
 6. training: one step's gradients at batch 16 with the kernels, with their
-   plain versions (forward and backward) and with fp64 attention (the
-   kernels' no more than 1.5x as far from the fp64 ones, RMS over all
-   parameters); then 8 steps of the train CLI's loop at the preset's batch
+   plain versions (forward and backward) and with fp64 attention, for three
+   draws (the kernels' no more than 1.5x as far from the fp64 ones, RMS over
+   all parameters and the draws); then 8 steps of the train CLI's loop at the preset's batch
    of 128 on the synthetic pool, with the launch counts reset before and
    read after (8 forward launches, each writing lse, and 8 backward launches
    per step), checking finite losses and grad norms, moved params (all but
@@ -90,7 +90,28 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
 11. ``pendulum_causaldae``'s effectiveness evaluation on phase 8's
    checkpoint with DPM++-25, 16 samples: four probes, one batch per
    variable, the effect variables intervened on z_post; 1 launch per UNet
-   call.
+   call;
+12. ``morphomnist_causaldae`` with the flow prior and dropout
+   (``flow_based=True, masking=False, dropout=0.1``) at full width: the
+   gradient check of phase 6 at batch 16 (the same dropout masks on every
+   route), then 4 steps of the train loop at batch 128 (finite, none
+   skipped, 8 forward launches with lse and 8 backward per step, every flow
+   parameter moved), and 2 steps with a checkpoint and a resume to step 4,
+   bit-equal to the 4 straight steps; step time, samples/s, peak memory;
+13a. the train CLI under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` (NCCL at world size 1, the model in DDP) and the
+   plain train CLI, 2 steps each in fresh processes: their checkpoints
+   bit-equal;
+13b. data parallelism on the one card with two gloo ranks (NCCL takes one
+   rank per device): the first train step at the global batch of 128, 64
+   rows per rank, against one process at 128 on the same global draws (the
+   all-reduced gradient within 1e-2 relative L2 of it, bit-equal on both
+   ranks, 8 launches of each kind per rank), 3 more steps timed per rank;
+   then the ``counterfactual_test`` CLI on the two ranks (8 samples each
+   per variable through DPM++-25, the 2 probes trained by rank 0): the
+   same JSON on both, only rank 0 writes, a finite MAE, both ranks' samples
+   in the archive (``process_count`` 2). The kernels were built in this
+   process (phase 2); each rank loads them.
 
 Each phase prints its wall time. Prints the card line and one
 ``{"kernels": [...]}`` JSON line, and as its last line
@@ -103,6 +124,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import itertools
 import json
 import math
 import os
@@ -139,6 +161,8 @@ ATTN_SHAPES = [  # (B, T, heads, d): the serving path's two shapes first
     (8, 784, 4, 32),    # morphomnist's NLL sweep at batch 8
     (8, 49, 4, 64),
     (2, 200, 2, 128),   # a d = 128 tail past the 2-stage ring's refill
+    (64, 784, 4, 32),   # morphomnist training on each of 2 ranks (global batch 128)
+    (64, 49, 4, 64),
 ]
 BWD_SHAPES = [          # the training path's two shapes first
     (128, 784, 4, 32),
@@ -150,6 +174,8 @@ BWD_SHAPES = [          # the training path's two shapes first
     (16, 16, 4, 128),
     (32, 144, 4, 128),  # pendulum_causaldae
     (2, 200, 2, 128),   # a d = 128 tail past the ring's refill
+    (64, 784, 4, 32),   # morphomnist training on each of 2 ranks
+    (64, 49, 4, 64),
 ]
 BWD_KERNELS = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 # the attention launches of one UNet call of each preset (forward; the same
@@ -159,6 +185,12 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 logsumexp: exp2 and sums in another
 FP64_BATCH = 16         # the fp64 gradient check runs on the first 16 batch elements
 TRAIN_STEPS = 8
 GRAD_BATCH = 16         # the plain and fp64 routes hold [B, 4, 784, 784] per block
+# the gradient check's distance is dominated by a few small tensors (the
+# largest share, printed, is the encoder's first conv's), so one draw's
+# kernel/plain ratio spreads widely (one read 1.624 on the flow model, on an
+# NVIDIA H100 80GB HBM3 at 700 W);
+# the check pools the squared distances of three draws
+GRAD_DRAWS = 3
 # kernel vs plain: both round p and the output to bf16, at different points,
 # so they may differ by two bf16 ulps (2^-6) of sum_j p_j |v_j|, the
 # magnitude of the terms each output sums (ops.attention.rounding_scale);
@@ -203,6 +235,15 @@ TF32_OFF = ("import torch\ntorch.backends.cuda.matmul.allow_tf32 = False\n"
 UNPIN = "import causaldiffae_torch.utils.determinism as d\nd.pin = lambda: None\n"
 CLF_EPOCHS = 2        # probe epochs in the evaluation phases (the CLI's default is 100)
 RESCORE_RTOL = 1e-5
+POOL = 4096           # the synthetic training pool (data.synthetic.POOL)
+# phase 12: the flagship with the flow prior (no keep-mask, so the KL's mask is
+# the flow's -mean(log_det)) and dropout in every ResBlock
+FLOW_DROPOUT = dict(flow_based=True, masking=False, dropout=0.1)
+# phase 13b: two ranks against one process differ only in cuDNN's algorithms for
+# batches of 64 and 128 and in the order of the sums (the all-reduces, BatchNorm's
+# global statistics), which the bf16 torso carries to the gradient
+DP_GRAD_TOL = 1e-2
+DP_EVAL_SAMPLES = 8   # counterfactual samples per rank and variable, one batch
 
 
 class PhaseClock:
@@ -527,13 +568,17 @@ class PlainAttention(torch.autograd.Function):
 
 
 def training_gradients(cfg, model, diffusion, batch, draws):
-    """One step's loss gradients, every parameter, flattened to fp64."""
+    """One step's loss gradients, every parameter, flattened to fp64. With
+    dropout, every call draws the same masks (a generator seeded alike)."""
     from causaldiffae_torch.training.train_step import compute_losses
 
     cond = {k: v for k, v in batch.items() if k != "image"}
+    masks = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    drop = lambda shape: torch.empty(shape, device="cuda").bernoulli_(  # noqa: E731
+        1.0 - cfg.dropout, generator=masks)
     terms = compute_losses(cfg, model, diffusion, batch["image"], cond, draws["t"], 0.5,
                            noise=draws["noise"], rep_noise=draws["rep_noise"],
-                           keep=draws["keep"])
+                           keep=draws["keep"], drop=drop)
     params = [p for p in model.parameters()]
     grads = torch.autograd.grad(terms["loss"].mean(), params, allow_unused=True)
     return torch.cat([(torch.zeros_like(p) if gr is None else gr).double().reshape(-1)
@@ -593,9 +638,10 @@ def counts(ops):
 def gradient_check(cfg, ops, gen, seed):
     """One step's gradient at batch GRAD_BATCH with the kernels, with their
     plain versions and with fp64 attention, on the same random weights,
-    batch and draws: the kernels' may stand at most 1.5x as far from the
-    fp64 one (RMS over all parameters) as the plain versions'. One gradient
-    launches each kernel once per attention block, every forward writing lse."""
+    batch and draws, for GRAD_DRAWS draws: the kernels' may stand at most
+    1.5x as far from the fp64 one as the plain versions' (RMS over all
+    parameters and the draws). One gradient launches each kernel once per
+    attention block, every forward writing lse."""
     from causaldiffae_torch.config import create_diffusion, create_model
     from causaldiffae_torch.data import synthetic_dataset
     from causaldiffae_torch.training.loop import to_device
@@ -605,31 +651,53 @@ def gradient_check(cfg, ops, gen, seed):
     fill_weights_(model, seed)
     B, s = GRAD_BATCH, cfg.image_size
     batch = to_device(synthetic_dataset(cfg.dataset, B, seed=SEED, image_size=s), "cuda")
-    draws = {"t": torch.randint(0, diffusion.num_timesteps, (B,), generator=gen, device="cuda"),
-             "noise": torch.randn(B, s, s, cfg.in_channels, generator=gen, device="cuda"),
-             "rep_noise": torch.randn(B, cfg.rep_dim, generator=gen, device="cuda"),
-             "keep": torch.tensor([1.0, 0.0] * (B // 2), device="cuda")}
-    before = counts(ops)
-    g_kernel = training_gradients(cfg, model, diffusion, batch, draws)
-    torch.cuda.synchronize()
-    launched = tuple(a - b for a, b in zip(counts(ops), before))
     n = ATTN_PER_CALL[cfg.name]
-    if launched != (n, n, n):
-        raise AssertionError(f"one full-width {cfg.name} gradient launched {launched} (forward, "
-                             f"forward with lse, backward) attention kernels, expected {n} each")
-    with route_attention(PlainAttention.apply):
-        g_plain = training_gradients(cfg, model, diffusion, batch, draws)
-    with route_attention(lambda qkv, heads: exact_attention(ops, qkv, heads)[0].to(qkv.dtype)):
-        g_exact = training_gradients(cfg, model, diffusion, batch, draws)
-    d_k, d_p = rms(g_kernel - g_exact), rms(g_plain - g_exact)
-    print(f"{cfg.name}: full-width gradient at B={B}, {g_kernel.numel()} parameters: rms "
-          f"{rms(g_exact):.4e}; rms distance from the gradient with fp64 attention: kernels "
-          f"{d_k:.4e}, plain {d_p:.4e} (ratio {d_k / d_p:.3f}, limit 1.5); kernels vs plain "
-          f"{rms(g_kernel - g_plain):.4e}; launches {launched}", flush=True)
-    if not bool(torch.isfinite(g_kernel).all()) or d_k > 1.5 * d_p:
-        raise AssertionError("the kernels' full-width gradient is not finite or stands farther "
-                             "from the fp64-attention gradient than the plain version's allows")
-    del model, g_kernel, g_plain, g_exact
+    dists = []  # (kernels, plain, kernels vs plain) per draw
+    names, sizes = zip(*((name, p.numel()) for name, p in model.named_parameters()))
+    by_tensor = torch.zeros(2, len(sizes), dtype=torch.float64)  # squared distances
+    for _ in range(GRAD_DRAWS):
+        draws = {"t": torch.randint(0, diffusion.num_timesteps, (B,), generator=gen,
+                                    device="cuda"),
+                 "noise": torch.randn(B, s, s, cfg.in_channels, generator=gen, device="cuda"),
+                 "rep_noise": torch.randn(B, cfg.rep_dim, generator=gen, device="cuda"),
+                 "keep": torch.tensor([1.0, 0.0] * (B // 2), device="cuda")}
+        before = counts(ops)
+        g_kernel = training_gradients(cfg, model, diffusion, batch, draws)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(counts(ops), before))
+        if launched != (n, n, n):
+            raise AssertionError(f"one full-width {cfg.name} gradient launched {launched} "
+                                 f"(forward, forward with lse, backward) attention kernels, "
+                                 f"expected {n} each")
+        if not bool(torch.isfinite(g_kernel).all()):
+            raise AssertionError("the kernels' full-width gradient is not finite")
+        with route_attention(PlainAttention.apply):
+            g_plain = training_gradients(cfg, model, diffusion, batch, draws)
+        with route_attention(lambda qkv, heads: exact_attention(ops, qkv, heads)[0]
+                             .to(qkv.dtype)):
+            g_exact = training_gradients(cfg, model, diffusion, batch, draws)
+        dists.append((rms(g_kernel - g_exact), rms(g_plain - g_exact), rms(g_kernel - g_plain)))
+        for i, g in enumerate((g_kernel, g_plain)):
+            by_tensor[i] += torch.stack([part.pow(2).sum() for part in
+                                         torch.split(g - g_exact, sizes)]).cpu()
+        scale = rms(g_exact)
+        del g_kernel, g_plain, g_exact
+    d_k, d_p = (math.sqrt(sum(d[i] ** 2 for d in dists) / len(dists)) for i in (0, 1))
+    share = by_tensor / by_tensor.sum(dim=1, keepdim=True)
+    top = int(share[0].argmax())
+    print(f"{cfg.name}: full-width gradient at B={B}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {GRAD_DRAWS} draws: rms "
+          f"{scale:.4e}; rms distance from the gradient with fp64 attention: kernels {d_k:.4e}, "
+          f"plain {d_p:.4e} (ratio {d_k / d_p:.3f}, limit 1.5); by draw (kernels, plain, "
+          f"kernels vs plain) {[tuple(f'{x:.3e}' for x in d) for d in dists]} (ratios "
+          f"{[round(d[0] / d[1], 3) for d in dists]}); largest share of the squared distance: "
+          f"{names[top]} ({sizes[top]} values), {float(share[0, top]):.3f} of the kernels', "
+          f"{float(share[1, top]):.3f} of the plain's; launches per gradient {launched}",
+          flush=True)
+    if d_k > 1.5 * d_p:
+        raise AssertionError("the kernels' full-width gradient stands farther from the "
+                             "fp64-attention gradient than the plain version's allows")
+    del model
     torch.cuda.empty_cache()
 
 
@@ -1103,6 +1171,333 @@ def nll_and_sampling_phase(ops, gen, ckpt, work):
     return {"nll": nll_fwd, "prior_sampling": sample_fwd}
 
 
+def step_device_ms(cfg, steps=5):
+    """Device time of one train step at the preset's batch (ms): the sum of
+    kernel times under torch.profiler over ``steps`` steps on one batch, after
+    2 warm-up steps, the weights filled; None where the trace holds no device
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from causaldiffae_torch.config import create_diffusion
+    from causaldiffae_torch.data import synthetic_dataset
+    from causaldiffae_torch.training import create_train_state, make_train_step
+    from causaldiffae_torch.training.loop import to_device
+
+    state = create_train_state(cfg, dp_model(cfg))
+    step = make_train_step(cfg, state.model, create_diffusion(cfg), state.optimizer)
+    batch = to_device(synthetic_dataset(cfg.dataset, cfg.batch_size, seed=SEED,
+                                        image_size=cfg.image_size), "cuda")
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events if e.self_device_time_total > 0)
+    del state, step
+    torch.cuda.empty_cache()
+    return (us / 1e3 / steps, launches / steps) if us > 0 else (None, None)
+
+
+def train_state(state):
+    """Every tensor of a train state (the model's, the optimizer's, the EMA)."""
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "ema": state.ema}
+
+
+def flow_dropout_phase(ops, gen, work):
+    """Phase 12: the flow prior and dropout at full width. The gradient check
+    at batch 16, then 4 steps of the train loop at the preset's batch, and 2
+    steps with a checkpoint and a resume to step 4 that must end bit-equal
+    to them (the dropout masks come from the step's generator). Returns the
+    kernels' launches in the 4 steps."""
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.data import batch_iterator, synthetic_dataset
+    from causaldiffae_torch.serve import build_model
+    from causaldiffae_torch.training import run_training
+    from causaldiffae_torch.utils.determinism import differences, pin
+
+    pin()  # the train CLI's setting, under which a rerun gives the same bits
+    cfg = get_config("morphomnist_causaldae").replace(**FLOW_DROPOUT)
+    gradient_check(cfg, ops, gen, SEED + 6)
+    diffusion = create_diffusion(cfg)
+    pool = synthetic_dataset(cfg.dataset, POOL, seed=SEED, image_size=cfg.image_size)
+    data = lambda skip=0: itertools.islice(  # noqa: E731
+        batch_iterator(pool, cfg.batch_size, seed=SEED + 1), skip, None)
+
+    def model():
+        m = build_model(cfg, "", SEED, "cuda")
+        fill_weights_(m, SEED + 7)
+        return m
+
+    m = model()
+    flow0 = {n: p.detach().clone() for n, p in m.causal_flow.named_parameters()}
+    stamps = SyncedStamps(data())
+    reset_counts(ops)  # this path's count
+    torch.cuda.reset_peak_memory_stats()
+    straight, records = run_training(cfg, m, diffusion, stamps, total_steps=4, log_interval=1,
+                                     device="cuda")
+    launches = counts(ops)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_records("flow + dropout", records, range(1, 5))
+    if launches != (8 * 4,) * 3:
+        raise AssertionError(f"flow + dropout: (forward, with lse, backward) launches {launches} "
+                             "in 4 steps, expected 8 of each per step")
+    still = [n for n, p in straight.model.causal_flow.named_parameters()
+             if torch.equal(p.detach(), flow0[n])]
+    if still:
+        raise AssertionError(f"flow parameters that did not move: {still}")
+    ckpt = os.path.join(work, "flow-ckpt")
+    run_training(cfg, model(), diffusion, data(), total_steps=2, log_interval=1, device="cuda",
+                 ckpt_dir=ckpt)
+    resumed, second = run_training(cfg, model(), diffusion, data(2), total_steps=4,
+                                   log_interval=1, device="cuda", ckpt_dir=ckpt)
+    check_records("flow + dropout, resumed", second, range(3, 5))
+    differ = differences(train_state(straight), train_state(resumed))
+    shutil.rmtree(ckpt)
+    if differ:
+        raise AssertionError(f"flow + dropout: steps 3-4 after a resume differ from a straight "
+                             f"run in {len(differ)} tensors, e.g. {sorted(differ)[:3]}")
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps.stamps, stamps.stamps[1:])]
+    step_s = sum(step_ms[2:]) / len(step_ms[2:]) / 1e3
+    base = get_config("morphomnist_causaldae")
+    device = {name: step_device_ms(c) for name, c in (
+        ("flagship", base), ("flow", base.replace(flow_based=True, masking=False)),
+        ("dropout", base.replace(dropout=FLOW_DROPOUT["dropout"])), ("flow + dropout", cfg))}
+    print("train step device time at batch 128 (torch.profiler, kernel sum, 5 steps; ms, "
+          "launches per step): " + ", ".join(
+              f"{k} {v[0]:.2f} ms, {v[1]:.0f} launches" if v[0] else f"{k} not measured"
+              for k, v in device.items()), flush=True)
+    n_flow = sum(p.numel() for p in straight.model.causal_flow.parameters())
+    print(f"flow + dropout {FLOW_DROPOUT}, {sum(p.numel() for p in m.parameters())} parameters "
+          f"({n_flow} in the flow), batch {cfg.batch_size}, 4 steps: loss "
+          f"{[round(r['loss'], 4) for r in records]}, kld_rep "
+          f"{[round(r['kld_rep'], 2) for r in records]}; step ms (host clock between device "
+          f"syncs) {[round(t, 2) for t in step_ms]}, steady {1e3 * step_s:.2f} ms "
+          f"({cfg.batch_size / step_s:.1f} samples/s); launches {launches}; peak memory "
+          f"{peak_gb:.3f} GB; every flow parameter moved; steps 3-4 after a checkpoint at 2 "
+          f"and a resume bit-equal to the straight run", flush=True)
+    return {"attention_fwd": launches[0], "attention_bwd": launches[2]}
+
+
+def torchrun_phase(work):
+    """Phase 13a: the train CLI under ``torch.distributed.run`` at world size 1
+    (NCCL, the model in DDP) and the plain CLI, 2 steps each in fresh
+    processes started together: their checkpoints must be bit-equal."""
+    from causaldiffae_torch.training import CheckpointManager
+    from causaldiffae_torch.utils.determinism import differences, tensors
+
+    dirs = {k: os.path.join(work, f"torchrun-{k}") for k in ("plain", "torchrun")}
+    args = REPEAT_TRAIN + ["--ckpt_dir"]
+    cmds = {"plain": [sys.executable, "-m", "causaldiffae_torch.train", *args, dirs["plain"]],
+            "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", "1", "-m", "causaldiffae_torch.train", *args,
+                         dirs["torchrun"]]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                 text=True) for k, c in cmds.items()}
+    try:
+        for k, p in procs.items():
+            _, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"the {k} train CLI exited {p.returncode}:\n{err[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    saved = {k: CheckpointManager(d).load() for k, d in dirs.items()}
+    differ = differences(saved["plain"], saved["torchrun"])
+    n = len(dict(tensors(saved["plain"])))
+    for d in dirs.values():
+        shutil.rmtree(d)
+    print(f"torchrun --nproc_per_node 1 (NCCL, DDP at W = 1) against the plain train CLI, 2 "
+          f"steps each in fresh processes, {time.perf_counter() - t0:.1f} s: "
+          f"{len(differ)} of {n} checkpoint tensors differ", flush=True)
+    if differ or saved["plain"]["step"] != 2:
+        raise AssertionError(f"the checkpoint under torchrun differs from the plain CLI's in "
+                             f"{sorted(differ)[:5]}")
+
+
+def dp_model(cfg):
+    """The data-parallel phase's weights: the seeded init, every weight filled."""
+    from causaldiffae_torch.serve import build_model
+
+    model = build_model(cfg, "", SEED, "cuda")
+    fill_weights_(model, SEED + 8)
+    return model
+
+
+def flat_grads(model):
+    return torch.cat([p.grad.detach().float().reshape(-1) for p in model.parameters()]).cpu()
+
+
+def dp_rank(rank, world, store, work, ckpt):
+    """One of phase 13b's ranks (a fresh process on the card, gloo): the first
+    train step on this rank's share of the global batch with the model in
+    DDP, then 3 more timed; then the ``counterfactual_test`` CLI on ``ckpt``.
+    Writes its gradient to ``<work>/dp-grad-<rank>.pt`` and prints one JSON
+    line per part."""
+    import torch.distributed as dist
+
+    from causaldiffae_torch import counterfactual_test
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.ops import attention as ops
+    from causaldiffae_torch.parallel import rank_rows
+    from causaldiffae_torch.training import create_train_state, make_train_step
+    from causaldiffae_torch.training.loop import to_device, wrap_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent process runs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    cfg = get_config("morphomnist_causaldae")
+    state = create_train_state(cfg, dp_model(cfg))
+    step = make_train_step(cfg, wrap_model(cfg, state.model, "cuda"), create_diffusion(cfg),
+                           state.optimizer)
+    with np.load(os.path.join(work, "dp-batch.npz")) as z:
+        rows = rank_rows(cfg.batch_size, world, rank)
+        batch = to_device({k: z[k][rows] for k in z.files}, "cuda")
+    reset_counts(ops)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.save(flat_grads(state.model), os.path.join(work, f"dp-grad-{rank}.pt"))
+    launches = counts(ops)
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(json.dumps({"rank": rank, "part": "train", "first_step_s": first_s,
+                      "step_ms": times, "launches": launches,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    wrote = []  # the files this rank writes
+    np_savez, grid = np.savez, counterfactual_test.save_grid
+    np.savez = lambda path, *a, **k: (wrote.append(os.path.basename(path)),
+                                      np_savez(path, *a, **k))
+    counterfactual_test.save_grid = lambda x, path, **k: (wrote.append(os.path.basename(path)),
+                                                          grid(x, path, **k))
+    save_best = counterfactual_test.ClassifierTrainer.save_best
+    counterfactual_test.ClassifierTrainer.save_best = lambda self, path: (
+        wrote.append(os.path.basename(path)), save_best(self, path))
+    reset_counts(ops)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = counterfactual_test.main(["--ckpt_dir", ckpt, "--synthetic", "--num_samples",
+                                       str(DP_EVAL_SAMPLES), "--batch_size",
+                                       str(DP_EVAL_SAMPLES), "--clf_epochs", str(CLF_EPOCHS),
+                                       "--sampler", "dpm++", "--sample_steps", "25",
+                                       "--out_dir", os.path.join(work, "dp-eval"),
+                                       "--seed", str(SEED)])
+    print(json.dumps({"rank": rank, "part": "eval", "result": result, "wrote": wrote,
+                      "seconds": time.perf_counter() - t0, "launches": counts(ops),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    dist.destroy_process_group()
+
+
+def data_parallel_phase(ops, work, ckpt):
+    """Phase 13b: two gloo ranks on the one card (NCCL takes one rank per
+    device). The first train step at the preset's global batch of 128, 64
+    rows per rank, against one process at 128 on the same global draws: the
+    all-reduced gradient within DP_GRAD_TOL (relative L2) of the one-process
+    gradient, and bit-equal on the two ranks. Then ``counterfactual_test``
+    on the two ranks: the same JSON on both, only rank 0 writes, a finite
+    MAE, the samples of both ranks in the archive. Returns rank 0's launches
+    by path."""
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.data import batch_iterator, synthetic_dataset
+    from causaldiffae_torch.training import create_train_state, make_train_step
+    from causaldiffae_torch.training.loop import to_device
+
+    cfg = get_config("morphomnist_causaldae")
+    pool = synthetic_dataset(cfg.dataset, POOL, seed=SEED, image_size=cfg.image_size)
+    batch = next(batch_iterator(pool, cfg.batch_size, seed=SEED + 1))
+    np.savez(os.path.join(work, "dp-batch.npz"), **batch)
+    state = create_train_state(cfg, dp_model(cfg))
+    t0 = time.perf_counter()
+    make_train_step(cfg, state.model, create_diffusion(cfg), state.optimizer)(
+        state, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = flat_grads(state.model).double()
+    del state
+    torch.cuda.empty_cache()
+
+    store = os.path.join(work, "dp-store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke\nchip_smoke.dp_rank({r}, 2, {store!r}, "
+                               f"{work!r}, {ckpt!r})\n"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=900)
+            if p.returncode:
+                raise AssertionError(f"data-parallel rank {r} exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    reports = [{rec["part"]: rec for rec in map(json.loads, (line for line in out.splitlines()
+                                                             if line.startswith('{"rank"')))}
+               for out in outs]
+    got = [torch.load(os.path.join(work, f"dp-grad-{r}.pt")).double() for r in range(2)]
+    if not torch.equal(got[0], got[1]):
+        raise AssertionError("the two ranks hold different all-reduced gradients")
+    dist_rel = float((got[0] - want).norm() / want.norm())
+    train = [rep["train"] for rep in reports]
+    print(f"data parallel, 2 gloo ranks on one card, global batch {cfg.batch_size} (64 per "
+          f"rank), first step: relative L2 distance of the all-reduced gradient from one "
+          f"process's {dist_rel:.3e} (limit {DP_GRAD_TOL}); one process's step "
+          f"{one_s:.3f} s; per rank: first step {[round(t['first_step_s'], 3) for t in train]} s, "
+          f"steps 2-4 ms (two processes sharing the card) "
+          f"{[[round(x, 1) for x in t['step_ms']] for t in train]}, launches "
+          f"{[t['launches'] for t in train]}, peak memory "
+          f"{[round(t['peak_gb'], 3) for t in train]} GB", flush=True)
+    if not dist_rel <= DP_GRAD_TOL:
+        raise AssertionError(f"the data-parallel gradient stands {dist_rel:.3e} from one "
+                             f"process's (relative L2), limit {DP_GRAD_TOL}")
+    n = ATTN_PER_CALL[cfg.name]
+    if any(t["launches"] != [n, n, n] for t in train):
+        raise AssertionError(f"a rank's first step launched {[t['launches'] for t in train]} "
+                             f"attention kernels, expected {n} of each")
+    ev = [rep["eval"] for rep in reports]
+    mae = {k: v for k, v in ev[0]["result"].items() if k.startswith("mae_")}
+    with np.load(os.path.join(work, "dp-eval", "samples_do_thickness.npz")) as z:
+        stamp, rows = int(z["process_count"]), z["samples"].shape[0]
+    print(f"data parallel counterfactual_test, 2 ranks, {DP_EVAL_SAMPLES} samples each "
+          f"through DPM++-25: {seconds:.1f} s for both parts; evaluation "
+          f"{[round(e['seconds'], 1) for e in ev]} s, peak memory "
+          f"{[round(e['peak_gb'], 3) for e in ev]} GB; result {ev[0]['result']}; rank 0 "
+          f"wrote {sorted(ev[0]['wrote'])}, rank 1 wrote {ev[1]['wrote']}; archive "
+          f"process_count {stamp}, {rows} samples", flush=True)
+    if ev[0]["result"] != ev[1]["result"] or ev[1]["wrote"] or not ev[0]["wrote"] \
+            or not all(math.isfinite(v) for v in mae.values()) or len(mae) != 2 \
+            or (stamp, rows) != (2, 2 * DP_EVAL_SAMPLES):
+        raise AssertionError("data-parallel evaluation: the ranks' results differ, rank 1 wrote, "
+                             "the MAE is not finite or the archive is not both ranks'")
+    shutil.rmtree(os.path.join(work, "dp-eval"))
+    return {"training_dp": train[0]["launches"], "evaluation_dp": ev[0]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card")
@@ -1269,6 +1664,13 @@ def main():
         evaluation_pendulum = evaluation_phase(
             "pendulum_causaldae", ops, pendulum_ckpt, os.path.join(work, "pendulum-eval"),
             num_samples=16, sampler="dpm++", sample_steps=25, compute_fid=False)
+        phase("12. morphomnist_causaldae with the flow prior and dropout at full width")
+        flow = flow_dropout_phase(ops, gen, work)
+        phase("13a. the train CLI under torchrun at world size 1 against the plain CLI")
+        torchrun_phase(work)
+        phase("13b. data parallelism: two gloo ranks on the card against one process")
+        torch.cuda.empty_cache()
+        dp = data_parallel_phase(ops, work, morpho_ckpt)
         phase()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1296,12 +1698,17 @@ def main():
                 "serving_pendulum": pendulum["serving"],
                 "training_pendulum": pendulum["training"][0],
                 "evaluation": evaluation, **nll_paths,
-                "evaluation_pendulum": evaluation_pendulum}),
+                "evaluation_pendulum": evaluation_pendulum,
+                "training_flow_dropout": flow["attention_fwd"],
+                "training_dp_rank0": dp["training_dp"][0],
+                "evaluation_dp_rank0": dp["evaluation_dp"][0]}),
         record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
                "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
                {"training": train_launches["attention_bwd"],
                 "training_circuit": circuit["training"][2],
-                "training_pendulum": pendulum["training"][2]}),
+                "training_pendulum": pendulum["training"][2],
+                "training_flow_dropout": flow["attention_bwd"],
+                "training_dp_rank0": dp["training_dp"][2]}),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)

@@ -280,7 +280,8 @@ def test_the_clis_refuse_what_they_cannot_do(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
     try:
+        # the probes' trainer stays single-process, as the JAX package's
         with pytest.raises(SystemExit, match="single-process"):
-            nll.main(["--device", "cpu"])
+            classifier_train.main(["--dataset", "morphomnist", "--factor", "0", "--device", "cpu"])
     finally:
         dist.destroy_process_group()

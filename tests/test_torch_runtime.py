@@ -14,7 +14,8 @@
   with ``--ckpt_dir``/``--logdir`` and a resume, its checkpoints recording
   the config with its overrides, and ``OPENAI_LOG_FORMAT`` reaching the
   event writer;
-- the loop refusing to run under ``torch.distributed``;
+- the loop under a one-rank ``torch.distributed`` group, bit-equal to one
+  process;
 - every module of the port imports with ``jax`` and ``causaldiffae_tpu``
   blocked.
 """
@@ -269,17 +270,24 @@ def test_train_cli_checkpoints_logs_and_resumes(tmp_path, monkeypatch, capsys):
 
 
 def test_training_refuses_torch_distributed(tmp_path):
+    """The loop no longer refuses ``torch.distributed``: on one rank of a gloo
+    group it trains the DDP-wrapped model and ends bit-equal to one process
+    (2 steps, the loss-aware sampler included)."""
     import torch.distributed as dist
 
     cfg = tiny_cfg()
+    plain, _ = run_training(cfg, fresh_model(cfg, 0), create_diffusion(cfg), iter(batches(3)),
+                            total_steps=2, log_interval=1, device="cpu")
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
     try:
-        with pytest.raises(RuntimeError, match="single-process"):
-            run_training(cfg, fresh_model(cfg, 0), create_diffusion(cfg), iter(batches(2)),
-                         total_steps=1, log_interval=1, device="cpu")
+        state, recs = run_training(cfg, fresh_model(cfg, 0), create_diffusion(cfg),
+                                   iter(batches(3)), total_steps=2, log_interval=1,
+                                   device="cpu")
     finally:
         dist.destroy_process_group()
+    assert [r["step"] for r in recs] == [1, 2]
+    assert_states_equal(state, plain)
 
 
 def test_every_port_module_imports_without_jax():
