@@ -197,6 +197,32 @@ def create_model(cfg: Config, device="cuda"):
     return model.to(device).eval()
 
 
+def create_sr_model(cfg: Config, large_size: int = 256, small_size: int = 64, device="cuda"):
+    """Super-resolution model (``causaldiffae_tpu/config.py:203-223``, the
+    reference's ``sr_create_model``): a UNet over twice the input channels at
+    ``large_size``, conditioned on the bilinear upsampling of the
+    ``small_size`` image, in eval mode on ``device``. Its attention takes the
+    plain path, as the JAX factory leaves ``use_pallas`` off."""
+    from .models.unet import SuperResUNet
+
+    del small_size  # the low-res size comes with the input, as in the JAX factory
+    model = SuperResUNet(
+        in_channels=cfg.in_channels * 2,
+        model_channels=cfg.num_channels,
+        out_channels=cfg.out_channels,
+        num_res_blocks=cfg.num_res_blocks,
+        attention_resolutions=attention_ds(large_size, cfg.attention_resolutions),
+        dropout=cfg.dropout,
+        channel_mult=channel_mult_for(large_size),
+        num_classes=NUM_CLASSES if cfg.class_cond else None,
+        num_heads=cfg.num_heads,
+        num_heads_upsample=cfg.num_heads_upsample,
+        use_scale_shift_norm=cfg.use_scale_shift_norm,
+        dtype=cfg.dtype,
+    )
+    return model.to(device).eval()
+
+
 def create_diffusion(cfg: Config, eval_mode: bool = False):
     """Build the diffusion process (train: no respacing; eval: respaced)."""
     from .diffusion.process import create_diffusion as _create

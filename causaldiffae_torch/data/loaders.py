@@ -21,9 +21,12 @@ JAX package feeds them (the model goes NCHW inside).
 dataset and yields ``batch_size / W`` rows per batch, as the JAX package's
 per-host feed does (``causaldiffae_tpu/data/loaders.py:70-77,294-307``).
 
-PIL and pandas are imported where a loader needs them. The JAX package's
-native C++ prefetch loader is not ported; ``load_data`` serves the numpy
-``batch_iterator``.
+PIL and pandas are imported where a loader needs them.
+``make_data_iterator`` routes a shuffled feed through the native C++
+prefetch loader (``data/native_loader.py``) when it builds and the images sit
+on an 8-bit grid, else through the numpy ``batch_iterator``, and logs which
+route serves; ``load_data`` takes that routing (``native=None``, the
+default, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import io as _io
 import os
 import struct
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -41,8 +44,8 @@ from ..config import DATA_SCALES
 from ..parallel import local_batch_size, rank, world_size
 
 __all__ = ["load_idx", "save_idx", "load_morphomnist", "load_pendulum",
-           "load_circuit", "load_image_folder", "rank_shard", "batch_iterator", "load_data",
-           "load_split"]
+           "load_circuit", "load_image_folder", "rank_shard", "batch_iterator",
+           "make_data_iterator", "load_data", "load_split"]
 
 
 # --------------------------------------------------------------------- #
@@ -214,10 +217,82 @@ def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
             yield {k: v[sel] for k, v in data.items()}
 
 
+def _uint8_pool(images: np.ndarray):
+    """Recover the 8-bit source grid from normalised float images.
+
+    Returns ``(u8, scale, offset)`` with ``u8 * scale + offset == images``
+    (to float32 rounding), or None when the images do not sit exactly on an
+    8-bit grid (``causaldiffae_tpu/data/loaders.py:213-239``). All four real
+    loaders decode 8-bit sources, so this is exact for them; the [-1, 1]
+    folder path uses scale 1/127.5.
+    """
+    images = np.asarray(images)
+    if images.dtype == np.uint8:
+        return images, 1.0 / 255.0, 0.0
+    if float(images.min()) < 0.0:
+        scale, offset = 1.0 / 127.5, -1.0
+    else:
+        scale, offset = 1.0 / 255.0, 0.0
+    u8f = np.rint((images - offset) / scale)
+    if float(u8f.min()) < 0 or float(u8f.max()) > 255:
+        return None
+    u8 = u8f.astype(np.uint8)
+    # exactness on a bounded random sample (a pool off the grid fails on any)
+    rng = np.random.RandomState(0)
+    sel = rng.randint(0, len(images), size=min(len(images), 256))
+    recon = u8[sel].astype(np.float32) * np.float32(scale) + np.float32(offset)
+    if not np.allclose(recon, images[sel], atol=2e-6):
+        return None
+    return u8, scale, offset
+
+
+def make_data_iterator(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
+                       shuffle: bool = True,
+                       native: Optional[bool] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """Batch iterator with the native C++ prefetch routing of
+    ``causaldiffae_tpu/data/loaders.py:242-272``.
+
+    When the native loader builds and the image pool sits on an 8-bit grid,
+    batches are assembled and normalised on C++ worker threads, one always
+    prefetched (a uint8 pool: 4x less host memory, no GIL in the feed);
+    otherwise the numpy ``batch_iterator``. ``native=False`` forces the numpy
+    path, ``native=True`` raises where the native path cannot serve. Logs
+    the route that serves. ``data`` is this rank's shard (``rank_shard``).
+    """
+    from ..utils import logger
+    from .native_loader import NativeBatchIterator, native_available
+
+    if native and not shuffle:
+        raise ValueError("native loader is shuffle-only (epoch-permutation prefetcher); "
+                         "use the numpy path for deterministic order")
+    reason = "asked for" if native is False else "deterministic order"
+    if native is not False and shuffle:
+        if native_available():
+            pool = _uint8_pool(data["image"])
+            if pool is not None:
+                u8, scale, offset = pool
+                logger.log(f"data: native C++ prefetch loader ({len(u8)} samples as uint8)")
+                return NativeBatchIterator(u8, batch_size, c=data.get("c"), y=data.get("y"),
+                                           scale=scale, offset=offset, seed=seed)
+            if native:
+                raise ValueError("images are not 8-bit-quantized; native loader cannot "
+                                 "serve this pool")
+            reason = "images off the 8-bit grid"
+        elif native:
+            raise RuntimeError("native loader unavailable (no compiler?)")
+        else:
+            reason = "native loader unavailable"
+    logger.log(f"data: numpy batch iterator ({reason})")
+    return batch_iterator(data, batch_size, seed=seed, shuffle=shuffle)
+
+
 def load_data(*, data_dir: str, batch_size: int, image_size: int,
-              class_cond: bool = False, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+              class_cond: bool = False, seed: int = 0,
+              native: Optional[bool] = None) -> Iterator[Dict[str, np.ndarray]]:
     """Shuffled batches of the training split, the loader picked by the
-    directory name; this rank's shard of the global ``batch_size``."""
+    directory name; this rank's shard of the global ``batch_size``, through
+    ``make_data_iterator``'s routing (the C++ loader where it can serve;
+    ``native=False`` keeps the numpy iterator)."""
     if not data_dir:
         raise ValueError("unspecified data directory")
     if "morphomnist" in data_dir:
@@ -228,7 +303,7 @@ def load_data(*, data_dir: str, batch_size: int, image_size: int,
         data = load_circuit(data_dir, image_size=image_size)
     else:
         data = load_image_folder(data_dir, image_size, class_cond=class_cond)
-    return batch_iterator(*rank_shard(data, batch_size), seed=seed)
+    return make_data_iterator(*rank_shard(data, batch_size), seed=seed, native=native)
 
 
 def load_split(dataset: str, data_dir: str, split: str) -> Dict[str, np.ndarray]:

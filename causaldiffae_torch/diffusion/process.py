@@ -100,6 +100,24 @@ class GaussianDiffusion:
             self._on_device[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
         return self._on_device[key]
 
+    def arrays_on(self, device) -> None:
+        """Copy every schedule array to ``device`` now. A traced program only
+        reads the cache: filled under ``torch.export``, it would keep the
+        trace's fake tensors (and a traced loop refuses the side effect), so
+        an exporter calls this first."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:   # as a tensor's device reads
+            device = torch.device("cuda", torch.cuda.current_device())
+        names = list(self.schedule._fields) + ["xprev_coef1", "xprev_coef2"]
+        if self.timestep_map is not None:
+            names.append("timestep_map")
+        missing = [n for n in names if (n, str(device)) not in self._on_device]
+        if missing and torch.compiler.is_compiling():
+            raise RuntimeError(f"the schedule arrays are not on {device}: call "
+                               "diffusion.arrays_on(device) before tracing a chain")
+        for name in missing:
+            self._array(name, device)
+
     def _extract(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
         """Per-timestep coefficients gathered and shaped [B, 1, ..., 1]."""
         out = self._array(name, t.device)[t]

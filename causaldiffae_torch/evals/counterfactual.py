@@ -17,7 +17,10 @@ Port of ``causaldiffae_tpu/evals/counterfactual.py:46-223``:
 Each returned function takes the images (NHWC), the conditioning dict, and
 optional noise tensors so that tests can inject the JAX package's draws;
 noise not given is drawn from the caller's ``torch.Generator`` (on the
-images' device). The functions run under ``torch.inference_mode``.
+images' device). The functions run under ``torch.inference_mode``; with
+``traceable=True`` they run the chains' traceable form instead, without
+that mode, for ``torch.export`` (``serving.py``), and then take every draw
+as an argument (DDPM's ``step_noise`` ``[N, B, ...]`` too).
 """
 
 from __future__ import annotations
@@ -67,6 +70,15 @@ def _randn(shape, like: torch.Tensor, generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def _chain_kwargs(traceable: bool, step_noise) -> dict:
+    """The loops' keyword arguments for the traceable form and DDPM's draws."""
+    return {"traceable": traceable, **({} if step_noise is None else {"step_noise": step_noise})}
+
+
+def _finish(fn, traceable: bool):
+    return fn if traceable else torch.inference_mode()(fn)
+
+
 def _denoiser(model: CausalUNet, y, c, z):
     def model_fn(xx, tt):
         return model.denoise(xx, tt, y=y, c=c, z=z)
@@ -76,9 +88,10 @@ def _denoiser(model: CausalUNet, y, c, z):
 def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *,
                            intervene_var: int, where: str = "auto", use_ddim: bool = True,
                            w: Optional[float] = None, abduction: str = "qsample",
-                           sampler: Optional[str] = None, sample_steps: Optional[int] = None):
+                           sampler: Optional[str] = None, sample_steps: Optional[int] = None,
+                           traceable: bool = False):
     """Build ``fn(x, cond, value, generator=None, *, abduction_noise=None,
-    rep_noise=None) -> samples``.
+    rep_noise=None, step_noise=None) -> samples``.
 
     ``value`` is the normalized intervention level broadcast over the
     variable's latent block. 'auto' picks 'pre' for a root variable and
@@ -99,9 +112,8 @@ def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion,
     if where not in ("pre", "post"):
         raise ValueError(f"where must be 'auto', 'pre' or 'post', got {where!r}")
 
-    @torch.inference_mode()
     def fn(x, cond: Dict[str, torch.Tensor], value, generator=None, *,
-           abduction_noise=None, rep_noise=None):
+           abduction_noise=None, rep_noise=None, step_noise=None):
         B = x.shape[0]
         mu_raw, _ = model.encode(x)
         var = torch.full_like(mu_raw, cfg.reparam_var_scale)
@@ -129,22 +141,23 @@ def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion,
             x_t = diffusion.q_sample(x, t, abduction_noise)
         else:
             x_t = ddim_reverse_loop(diffusion, _denoiser(model, y, c, make_z(False)), x,
-                                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn)
-        return loop(diffusion, model_fn, x_t, generator,
-                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn)
+                                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn,
+                                    traceable=traceable)
+        return loop(diffusion, model_fn, x_t, generator, clip_denoised=cfg.clip_denoised, w=w,
+                    uncond_fn=uncond_fn, **_chain_kwargs(traceable, step_noise))
 
-    return fn
+    return _finish(fn, traceable)
 
 
 def make_reconstruct_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *,
                         use_ddim: bool = True, w: Optional[float] = None,
-                        sampler: Optional[str] = None, sample_steps: Optional[int] = None):
+                        sampler: Optional[str] = None, sample_steps: Optional[int] = None,
+                        traceable: bool = False):
     """Identity counterfactual: ``fn(x, cond, generator=None, *,
-    abduction_noise=None, rep_noise=None) -> samples``."""
+    abduction_noise=None, rep_noise=None, step_noise=None) -> samples``."""
     loop = resolve_sampler(use_ddim, sampler, sample_steps)
 
-    @torch.inference_mode()
-    def fn(x, cond, generator=None, *, abduction_noise=None, rep_noise=None):
+    def fn(x, cond, generator=None, *, abduction_noise=None, rep_noise=None, step_noise=None):
         B = x.shape[0]
         mu, _ = model.encode(x)
         z_post = model.causalize(mu) if cfg.causal_modeling else mu
@@ -159,26 +172,27 @@ def make_reconstruct_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *,
         y, c = cond.get("y"), cond.get("c")
         uncond_fn = _denoiser(model, y, c, torch.zeros_like(z)) if w is not None else None
         return loop(diffusion, _denoiser(model, y, c, z), x_t, generator,
-                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn)
+                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn,
+                    **_chain_kwargs(traceable, step_noise))
 
-    return fn
+    return _finish(fn, traceable)
 
 
 def make_prior_sample_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *,
                          use_ddim: bool = False, sampler: Optional[str] = None,
-                         sample_steps: Optional[int] = None):
+                         sample_steps: Optional[int] = None, traceable: bool = False):
     """Prior sampling, z ~ N(0, I) and x_T ~ N(0, I): ``fn(shape, cond,
-    generator=None, *, z=None, x_T=None, device="cuda") -> samples``. A model
-    without a representation (``rep_cond`` false) takes no z."""
+    generator=None, *, z=None, x_T=None, step_noise=None, device="cuda") ->
+    samples``. A model without a representation (``rep_cond`` false) takes no z."""
     loop = resolve_sampler(use_ddim, sampler, sample_steps)
 
-    @torch.inference_mode()
-    def fn(shape, cond, generator=None, *, z=None, x_T=None, device="cuda"):
+    def fn(shape, cond, generator=None, *, z=None, x_T=None, step_noise=None, device="cuda"):
         if z is None and cfg.rep_cond:
             z = torch.randn((shape[0], cfg.rep_dim), generator=generator, device=device)
         if x_T is None:
             x_T = torch.randn(shape, generator=generator, device=device)
         model_fn = _denoiser(model, cond.get("y"), cond.get("c"), z)
-        return loop(diffusion, model_fn, x_T, generator, clip_denoised=cfg.clip_denoised)
+        return loop(diffusion, model_fn, x_T, generator, clip_denoised=cfg.clip_denoised,
+                    **_chain_kwargs(traceable, step_noise))
 
-    return fn
+    return _finish(fn, traceable)

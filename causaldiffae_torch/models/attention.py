@@ -13,6 +13,8 @@ attention core goes to the fused entry points of ``ops/attention.py``
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -21,7 +23,14 @@ from ..ops.attention import fused_qkv_attention, fused_qkv_attention_t
 from .layers import GroupNorm32
 
 
-def qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def einsum_scale(d: int, dtype: torch.dtype) -> float:
+    """``1 / dtype(d^1/4)`` in ``dtype``, the einsum path's scale, as a float."""
+    root = torch.sqrt(torch.sqrt(torch.tensor(float(d), dtype=torch.float32))).to(dtype)
+    return float(1.0 / root)
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Attention over tokens given fused head-major QKV (the einsum path).
 
     qkv: [B, T, 3C] -> [B, T, C], the math of the JAX ``qkv_attention``:
@@ -29,15 +38,18 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     rounded to the input dtype, softmax in fp32 and cast back, and the
     weighted sum of v rounded to the input dtype. (In bf16 at d = 32 this
     scale rounds to 0.421875 where the Pallas kernels' ``dtype(d^-1/4)``
-    gives 0.419921875; each path keeps its own.)
+    gives 0.419921875; each path keeps its own.) The scale is a float
+    (``einsum_scale``, or ``scale`` where the caller computed it), a value
+    of the dtype, so multiplying by it rounds as multiplying by the 0-d
+    tensor does.
     """
     B, T, threeC = qkv.shape
     C = threeC // 3
     d = C // num_heads
     dt = qkv.dtype
     q, k, v = qkv.reshape(B, T, num_heads, 3 * d).split(d, dim=-1)
-    root = torch.sqrt(torch.sqrt(torch.tensor(float(d), dtype=torch.float32))).to(dt)
-    scale = 1.0 / root
+    if scale is None:
+        scale = einsum_scale(d, dt)
     weight = torch.einsum("bthd,bshd->bhts", (q * scale).float(), (k * scale).float()).to(dt)
     weight = torch.softmax(weight.float(), dim=-1).to(dt)
     out = torch.einsum("bhts,bshd->bthd", weight.float(), v.float()).to(dt)
@@ -65,6 +77,8 @@ class AttentionBlock(nn.Module):
         self.proj_out = nn.Conv1d(channels, channels, 1)
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
+        # a float computed here, so a traced forward holds no tensor constant
+        self.scale = einsum_scale(channels // num_heads, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[:2]
@@ -78,6 +92,6 @@ class AttentionBlock(nn.Module):
             else:
                 h = fused_qkv_attention(qkv, self.num_heads)
         else:
-            h = qkv_attention(qkv, self.num_heads)
+            h = qkv_attention(qkv, self.num_heads, self.scale)
         h = F.linear(h, self.proj_out.weight[:, :, 0].to(dt), self.proj_out.bias.to(dt))
         return (tokens + h.transpose(1, 2)).reshape(x.shape)

@@ -1,9 +1,9 @@
 """The CausalDiffAE UNet denoiser.
 
-Port of ``causaldiffae_tpu/models/unet.py:57-277``: ``denoise``, ``encode``,
-``causalize``, ``encode_and_causalize`` and the training forward
-(``forward``, the counterpart of ``__call__``). ``feature_vectors`` and
-``SuperResUNet`` belong to later slices. The module's mode stands for the
+Port of ``causaldiffae_tpu/models/unet.py:57-311``: ``denoise``, ``encode``,
+``causalize``, ``encode_and_causalize``, the training forward (``forward``,
+the counterpart of ``__call__``), ``feature_vectors`` and the
+super-resolution variant ``SuperResUNet``. The module's mode stands for the
 JAX package's ``train`` flag: ``model.train()`` normalises the encoder's
 BatchNorm with the batch's statistics and updates the running ones
 (``models/encoder.py``), and turns the ResBlocks' dropout on.
@@ -34,6 +34,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..parallel.collectives import sum_across_ranks, world_size
 from .attention import AttentionBlock
@@ -271,3 +272,38 @@ class CausalUNet(nn.Module):
                 mask = keep
             aux = {"mu": mu, "var": var, "z_post": z_post, "mask": mask}
         return self.denoise(x, t, y=y, c=c, z=z, drop=drop), aux
+
+    def feature_vectors(self, x, t, y=None):
+        """Every intermediate activation, NHWC in x's dtype: ``{"down": [...],
+        "middle": ..., "up": [...]}`` (``unet.py:280-297``)."""
+        emb = self._embed(t, y, None, None).to(self.dtype)
+        h = _nchw(x).to(self.dtype)
+        hs, result = [], {"down": [], "up": []}
+        for blocks in self.input_blocks:
+            h = self._apply_seq(blocks, h, emb, None)
+            hs.append(h)
+            result["down"].append(_nhwc(h).to(x.dtype))
+        h = self._apply_seq(self.middle_block, h, emb, None)
+        result["middle"] = _nhwc(h).to(x.dtype)
+        for blocks in self.output_blocks:
+            h = self._apply_seq(blocks, torch.cat([h, hs.pop()], dim=1), emb, None)
+            result["up"].append(_nhwc(h).to(x.dtype))
+        return result
+
+
+class SuperResUNet(CausalUNet):
+    """Super-resolution variant (``unet.py:300-311``): the UNet over x and the
+    bilinear upsampling of ``low_res`` concatenated on channels. A subclass,
+    as the reference's ``SuperResModel`` is of ``UNetModel``, so its
+    ``state_dict`` keys have no prefix (flax's have ``unet``)."""
+
+    def forward(self, x, t, low_res=None, **kwargs):
+        """``(eps, aux)`` of :meth:`CausalUNet.forward` on ``[x, up(low_res)]``, NHWC.
+
+        ``F.interpolate``'s bilinear with half-pixel centres is
+        ``jax.image.resize``'s triangle kernel when it upsamples: an output
+        pixel left of the first input centre takes the edge value in both
+        (torch clamps the coordinate, jax renormalises the one weight left)."""
+        up = F.interpolate(_nchw(low_res), size=x.shape[1:3], mode="bilinear",
+                           align_corners=False)
+        return super().forward(torch.cat([x, _nhwc(up)], dim=-1), t, **kwargs)

@@ -22,6 +22,15 @@ output is ``[B, T, C]``, both in the input dtype. On a CPU tensor each wrapper
 runs its plain version; on a CUDA tensor it launches its kernel or raises.
 ``attention_fwd.launches`` and ``attention_bwd.launches`` count launches,
 ``attention_fwd.lse_launches`` those forward launches that wrote lse.
+
+The forward without a gradient is also the dispatcher op
+``torch.ops.causaldiffae.attention_fwd(qkv, num_heads)`` (registered when this
+module is imported), so that ``torch.export`` and AOTInductor keep it as one
+node of a serving artifact's graph: a ctypes call is opaque to them. Its
+implementation is :func:`attention_fwd`, so a run of an exported program
+counts its launches as an eager run does. :func:`fused_qkv_attention` sends
+every call that needs no gradient (serving, evaluation, an artifact) through
+the op, and a call that does through ``FusedAttention``.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ import torch
 
 from . import _build
 
-__all__ = ["attention_plain", "attention_fwd", "attention_bwd_plain", "attention_bwd_exact",
+__all__ = ["attention_plain", "attention_fwd", "attention_fwd_op", "prepare_forward",
+           "attention_bwd_plain",
+           "attention_bwd_exact",
            "attention_bwd",
            "fused_qkv_attention", "fused_qkv_attention_t", "rounding_scale",
            "bwd_rounding_scale", "KERNEL_HEAD_DIMS"]
@@ -281,6 +292,19 @@ attention_fwd.launches = 0
 attention_fwd.lse_launches = 0  # launches that wrote lse (the training path's)
 
 
+@torch.library.custom_op("causaldiffae::attention_fwd", mutates_args=())
+def attention_fwd_op(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The forward without lse as a dispatcher op: :func:`attention_fwd`."""
+    return attention_fwd(qkv, num_heads)
+
+
+@attention_fwd_op.register_fake
+def _(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    # shapes only: what a traced graph needs to know of the output
+    B, T, threeC = qkv.shape
+    return qkv.new_empty((B, T, threeC // 3))
+
+
 def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                   out: torch.Tensor = None, lse: torch.Tensor = None) -> torch.Tensor:
     """The backward kernel's wrapper: plain version on the CPU, the CUDA kernel on the card.
@@ -335,11 +359,24 @@ class FusedAttention(torch.autograd.Function):
         return attention_bwd(qkv, g.contiguous(), ctx.num_heads, out, lse), None
 
 
+def prepare_forward(device) -> None:
+    """Make the no-grad forward ready before the first request: build the
+    kernel on a card, and call the op once on a tiny CPU tensor, since the
+    first call of a ``torch.library`` op in a process imports its machinery,
+    which takes seconds."""
+    if str(device).startswith("cuda"):
+        _build.build("attention_fwd")
+    torch.ops.causaldiffae.attention_fwd(torch.zeros(1, 1, 96, dtype=torch.bfloat16), 1)
+
+
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Counterpart of the JAX ``fused_qkv_attention`` (K1, and K2 as its VJP)."""
-    return FusedAttention.apply(qkv, num_heads)
+    """Counterpart of the JAX ``fused_qkv_attention`` (K1, and K2 as its VJP):
+    ``FusedAttention`` where qkv needs a gradient, else the op."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return FusedAttention.apply(qkv, num_heads)
+    return torch.ops.causaldiffae.attention_fwd(qkv, num_heads)
 
 
 def fused_qkv_attention_t(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Counterpart of the JAX ``fused_qkv_attention_t`` (K3, and K4 as its VJP): same kernels."""
-    return FusedAttention.apply(qkv, num_heads)
+    return fused_qkv_attention(qkv, num_heads)

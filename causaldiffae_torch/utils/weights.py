@@ -121,10 +121,16 @@ def state_dict_from_flax(cfg, variables: Mapping[str, Any]) -> Dict[str, torch.T
     """The port's ``state_dict`` (reference keys) from flax variables.
 
     BatchNorm ``num_batches_tracked`` counters have no flax counterpart and
-    are emitted as 0 (torch reads them only under ``momentum=None``).
+    are emitted as 0 (torch reads them only under ``momentum=None``). A
+    super-resolution model's flax tree holds its UNet under ``unet``; its
+    keys carry no prefix here (``SuperResUNet`` is a ``CausalUNet``), and
+    ``cfg`` is then the UNet's: ``image_size`` the large size.
     """
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
+    if "unet" in params:
+        return state_dict_from_flax(cfg, {"params": params["unet"],
+                                          "batch_stats": batch_stats.get("unet", {})})
     sd: Dict[str, np.ndarray] = {}
 
     _linear(sd, "time_embed.0", params["time_dense1"]["Dense_0"])

@@ -73,9 +73,9 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    bit (raises on any difference); then the train CLI and the probes twice
    each with the entry points' cuDNN pin undone, which shows where the
    differences the pin removes come from;
-9. the effectiveness evaluation of ``morphomnist_causaldae``: 2 steps of
-   the train CLI and a checkpoint, then the ``counterfactual_test`` CLI on
-   it (DDIM-250, 32 samples in batches of 16, two probes trained in-process,
+9. the effectiveness evaluation of ``morphomnist_causaldae``: on the
+   checkpoint of 2 train CLI steps written after phase 6, the
+   ``counterfactual_test`` CLI (DDIM-250, 32 samples in batches of 16, two probes trained in-process,
    FID over the probe trunk) and ``rescore_counterfactuals`` on its saved
    samples with the same probes: finite MAE, probe MSE and FID >= 0, samples
    finite in [-1, 1], PNG grids with the right size, the rescore within 1e-5
@@ -111,8 +111,43 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    per variable through DPM++-25, the 2 probes trained by rank 0): the
    same JSON on both, only rank 0 writes, a finite MAE, both ranks' samples
    in the archive (``process_count`` 2). The kernels were built in this
-   process (phase 2); each rank loads them.
+   process (phase 2); each rank loads them;
+14. serving artifacts at full width. Four jobs run in processes of their
+   own (an AOTInductor compile takes minutes), started after phase 13b so
+   that the timed phases 7, 8, 12 and 13 run on a quiet host and card,
+   beside phases 8b, 9, 10 and 11, which run after 13b: the morphomnist
+   DDIM-250 counterfactual at batch 16 with its AOT package, from the train
+   CLI's 2-step checkpoint (written after phase 6; phases 9, 10 and 13b read
+   it); the same chain without a package and a DPM++-25 one with a symbolic
+   batch, from a copy of that checkpoint with every weight filled
+   (``fill_weights_``: 2 steps leave the attention output projections and
+   the UNet's last layer near their zero init, so the 2-step answers barely
+   depend on the attention op's); the pendulum's DPM++-25 one on phase 8's
+   checkpoint; and one UNet call of the flagship on the filled weights
+   compiled into an AOT package. Every artifact is verified by the CLI.
+   Then (a) each graph holds the attention op (8 nodes) and each program,
+   the AOT package included, reproduces the direct call within
+   max(1e-5, 2e-5 x 250); the one-call package's eps stands no farther from
+   the eager call's than ``AOT_CALL_RATIO`` x the plain attention's, 8
+   launches and none with lse (on the filled weights a 250-step chain
+   carries any bf16 rounding difference far past the atol, so the chain's
+   package is held to it on the 2-step weights); (b) ``serve_artifact`` serves 3 batches
+   of 16 from the AOT package (``--prewarm``, ``"aot": true``), from the
+   portable program (``--no_aot``) and in a fresh process that loads no
+   model code, 8 forward launches per UNet call and none with lse each
+   time; (c) the same request and draws through each DDIM-250 program and
+   through in-process serving on its weights, within that atol; (d) the
+   symbolic batch served at 1 and 16; (e) the pendulum artifact, 1 launch
+   per UNet call; (f) first-call and steady latency of the three routes
+   beside in-process serving. Phase 5 also times the host cost of one
+   forward call through the dispatcher op against the ctypes wrapper;
+15. one bf16 forward of ``create_sr_model`` at 256 from 64 (batch 4, time
+   and peak memory), ``feature_vectors`` on the flagship (as many
+   activations as the JAX structure has), the native loader at batch 128
+   (its route, batches/s against the numpy iterator, two loaders from one
+   seed bit-equal) and ``validate_adjacency`` for 20 steps.
 
+The phases run in the order 1-8, 12, 13a, 13b, 8b, 9, 10, 11, 14, 15.
 Each phase prints its wall time. Prints the card line and one
 ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -1498,6 +1533,423 @@ def data_parallel_phase(ops, work, ckpt):
     return {"training_dp": train[0]["launches"], "evaluation_dp": ev[0]["launches"]}
 
 
+ARTIFACT_BATCH = 16
+ARTIFACT_REQUESTS = 48   # 3 batches of 16 per serving route
+DDIM_STEPS = 250         # morphomnist's eval respacing: UNet calls per DDIM chain
+
+
+def served_artifact(ops, serve_artifact, artifact, label, argv, calls_per_chain, per_call):
+    """``serve_artifact.main`` on ``ARTIFACT_REQUESTS`` synthetic requests in
+    this process, with the launch counts reset before and read after: the
+    forward kernel ``per_call`` times per UNet call of every chain run
+    (the prewarm's included), none writing lse, no backward. Returns the report."""
+    out = artifact + f".{label}.npz"
+    reset_counts(ops)
+    rep = serve_artifact.main(["--artifact", artifact, "--synthetic", str(ARTIFACT_REQUESTS),
+                               "--value", "1.0", "--out", out, *argv])
+    chains = ARTIFACT_REQUESTS // rep["batch"] + ("--prewarm" in argv)
+    want = per_call * calls_per_chain * chains
+    if counts(ops) != (want, 0, 0) or rep["attention_launches"] != want:
+        raise AssertionError(f"{label}: (forward, with lse, backward) launches {counts(ops)} "
+                             f"for {chains} chains of {calls_per_chain} UNet calls, expected "
+                             f"{per_call} forward per call")
+    check_samples(label, out, (ARTIFACT_REQUESTS, 28, 28, 1))
+    return rep
+
+
+FRESH_CONSUMER = """
+import json, sys
+import torch
+import causaldiffae_torch.serving
+from causaldiffae_torch import serve_artifact
+report = serve_artifact.main(sys.argv[1:])
+banned = [m for m in sys.modules if m.startswith(("causaldiffae_torch.models",
+          "causaldiffae_torch.diffusion", "causaldiffae_torch.evals", "causaldiffae_torch.config",
+          "causaldiffae_tpu", "jax"))]
+if banned:
+    raise SystemExit(f"the consumer loaded model code: {banned}")
+print("FRESH " + json.dumps(report))
+"""
+
+
+EXPORTER = """
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from causaldiffae_torch import export_serving
+for argv in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    export_serving.main(argv)
+    print(f"EXPORTED {argv[argv.index('--out') + 1]} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+"""
+
+
+CALL_CHECK = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from causaldiffae_torch import serve, serving
+from causaldiffae_torch.models.attention import AttentionBlock
+from causaldiffae_torch.ops import attention as ops
+ckpt, out, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
+cfg, model, _ = serve.load_checkpoint(ckpt, use_ema=False, device="cuda")
+model.requires_grad_(False)
+ops.prepare_forward("cuda")
+req = serve.synthetic_requests(cfg, 16, seed)
+x, y = torch.from_numpy(req["x"]).cuda(), torch.from_numpy(req["y"]).cuda()
+xt = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                 device="cuda")
+t = torch.full((x.shape[0],), 500, dtype=torch.long, device="cuda")
+blocks = [b for b in model.modules() if isinstance(b, AttentionBlock)]
+
+
+class Call(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.model = model
+
+    def forward(self, xt, t, y, z):
+        return self.model.denoise(xt, t, y=y, z=z)
+
+
+with torch.inference_mode():
+    z = model.encode(x)[0]
+    eps = {"kernel": model.denoise(xt, t, y=y, z=z)}
+    for b in blocks:
+        b.use_kernels = False
+    eps["plain"] = model.denoise(xt, t, y=y, z=z)
+    for b in blocks:
+        b.use_kernels = True
+    saved = [b.proj_out.weight.clone() for b in blocks]
+    for b in blocks:
+        b.proj_out.weight.zero_()
+    eps["no attention"] = model.denoise(xt, t, y=y, z=z)
+    for b, w in zip(blocks, saved):
+        b.proj_out.weight.copy_(w)
+z = z.clone()
+with torch.no_grad():
+    ep = torch.export.export(Call(), (xt, t, y, z))
+rec = serving.export_compiled_artifact(ep, out)
+package = serving.load_compiled_artifact(out)
+ops.attention_fwd.launches = ops.attention_fwd.lse_launches = 0
+with torch.inference_mode():
+    eps["AOT package"] = package(xt, t, y, z)
+    torch.cuda.synchronize()
+rms = {k: float((v.float() - eps["kernel"].float()).pow(2).mean().sqrt()) for k, v in eps.items()}
+print("CALL " + json.dumps({"compile_s": rec["compile_s"], "launches": ops.attention_fwd.launches,
+                            "lse_launches": ops.attention_fwd.lse_launches, "rms": rms,
+                            "eps_rms": float(eps["kernel"].float().pow(2).mean().sqrt())}))
+"""
+# phase 14's bound on one UNet call of the AOT package: its eps may stand no
+# farther from the eager call's (both with the kernel) than 1.5x the plain
+# attention's eps does, the rounding distance of two right routes (phase 4's
+# rule). Removing the attention's answer moved eps ~10x farther than the bound.
+AOT_CALL_RATIO = 1.5
+
+
+def start_call_check(work, ckpt):
+    """Phase 14's check of the op inside an AOTInductor package, one UNet call
+    of the flagship on ``ckpt`` at batch 16, in a process of its own (its
+    compile takes minutes). Returns ``(process, {}, log)``."""
+    d = os.path.join(work, "artifacts")
+    os.makedirs(d, exist_ok=True)
+    log = open(os.path.join(d, "call-check.log"), "w")
+    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="4")
+    proc = subprocess.Popen([sys.executable, "-c", CALL_CHECK, ckpt,
+                             os.path.join(d, "call.pt2"), str(SEED + 3)], cwd=REPO,
+                            stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, {}, log
+
+
+def filled_checkpoint(src, dst, seed):
+    """A copy of the latest checkpoint in ``src`` whose raw weights are filled
+    by ``fill_weights_`` (2 train steps leave every attention output
+    projection near its zero init, which would hide the attention op's
+    answer from a comparison). Returns ``dst``."""
+    from causaldiffae_torch import serve
+    from causaldiffae_torch.training import CheckpointManager
+    from causaldiffae_torch.training.state import create_train_state
+
+    cfg, model, step = serve.load_checkpoint(src, use_ema=False, device="cpu")
+    fill_weights_(model, seed)
+    CheckpointManager(dst, config=cfg).save(step, create_train_state(cfg, model))
+    return dst
+
+
+def start_exports(work, tag, jobs):
+    """Phase 14's exports in a process of their own, so that they (the
+    AOTInductor compile takes minutes) run beside other phases: ``jobs`` is a list of
+    ``(name, checkpoint, extra argv)``, each a counterfactual at batch 16
+    verified by the CLI. Returns ``(process, {name: path}, log)``."""
+    d = os.path.join(work, "artifacts")
+    os.makedirs(d, exist_ok=True)
+    paths = {name: os.path.join(d, f"{name}.pt2") for name, _, _ in jobs}
+    argvs = [["--ckpt_dir", ckpt, "--out", paths[name], "--fn", "counterfactual",
+              "--batch_size", str(ARTIFACT_BATCH), *extra] for name, ckpt, extra in jobs]
+    log = open(os.path.join(d, f"export-{tag}.log"), "w")
+    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="4")   # leave the phases cores
+    proc = subprocess.Popen([sys.executable, "-c", EXPORTER, json.dumps(argvs)], cwd=REPO,
+                            stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, paths, log
+
+
+DPM25 = ["--sampler", "dpm++", "--sample_steps", "25"]
+
+
+def artifact_phase(ops, exporters, morpho_ckpt, filled_ckpt):
+    """Phase 14: serving artifacts at full width, with the kernel inside;
+    ``morpho_ckpt`` is the train CLI's 2-step checkpoint, ``filled_ckpt`` its
+    copy with every weight filled. Returns the forward kernel's launches by
+    path."""
+    from causaldiffae_torch import serve, serve_artifact, serving
+    from causaldiffae_torch.config import create_diffusion
+    from causaldiffae_torch.diffusion.sampling import dpm_solver_pp_nodes
+    from causaldiffae_torch.evals import make_counterfactual_fn
+
+    t0, paths, call = time.perf_counter(), {}, None
+    for proc, got, log in exporters:
+        rc = proc.wait(timeout=1200)
+        log.close()
+        with open(log.name) as f:
+            lines = f.read().splitlines()
+        print(f"{time.perf_counter() - t0:.1f} s into the wait, {os.path.basename(log.name)}:")
+        for ln in lines:
+            if ln.startswith(("EXPORTED", "wrote", "verify", "Traceback")) or "Error" in ln:
+                print("    " + ln)
+            if ln.startswith("CALL "):
+                call = json.loads(ln[5:])
+        if rc != 0:
+            raise AssertionError("the exports failed:\n" + "\n".join(lines[-40:]))
+        paths.update(got)
+    mans = {k: json.load(open(p + serving.MANIFEST_SUFFIX)) for k, p in paths.items()}
+    out, man = paths["ddim"], mans["ddim"]
+    fout, fman = paths["ddim_filled"], mans["ddim_filled"]
+    atol = max(1e-5, 2e-5 * DDIM_STEPS)
+    aot = man["aot"]
+    # (a) what the export made
+    print(f"(a) morphomnist DDIM-{DDIM_STEPS} counterfactual at batch {ARTIFACT_BATCH}: export "
+          f"{man['export_s']:.1f} s, AOT compile {aot['compile_s']:.1f} s (host compiler "
+          f"{aot['cxx']}, 4 compile threads beside phases 8b-11); artifact {man['bytes']} bytes, "
+          f"AOT package {aot['bytes']} bytes; attention {man['attention']}, "
+          f"{man['attention_nodes']} op nodes in the graph")
+    print(f"    the same from the filled checkpoint, without a package: export "
+          f"{fman['export_s']:.1f} s, attention {fman['attention']}, "
+          f"{fman['attention_nodes']} op nodes")
+    for label, m in (("2-step", man), ("filled", fman)):
+        for v in m["verify"]:
+            print(f"    verify {label} {v['route']}: max|direct - artifact| {v['max_abs']:.3e} "
+                  f"(atol {v['atol']:.1e})")
+    if any(m["attention"] != "kernel" or m["attention_nodes"] != 8 or
+           any(v["max_abs"] > atol for v in m["verify"]) for m in (man, fman)) or \
+            [v["route"] for v in man["verify"]] != ["artifact", "AOT package"]:
+        raise AssertionError("an artifact lacks the attention op, or it or its AOT package "
+                             "does not verify")
+    # the op inside an AOT package, one UNet call on the filled weights
+    rms = call["rms"]
+    bound = AOT_CALL_RATIO * rms["plain"]
+    print(f"    one UNet call's AOT package on the filled weights (compile "
+          f"{call['compile_s']:.1f} s): its eps {rms['AOT package']:.3e} rms from the eager "
+          f"call's (bound {bound:.3e}, {AOT_CALL_RATIO} x the plain attention's "
+          f"{rms['plain']:.3e}; eps rms {call['eps_rms']:.3e}); without the attention's answer "
+          f"{rms['no attention']:.3e}; {call['launches']} launches, {call['lse_launches']} "
+          f"with lse")
+    if call["launches"] != 8 or call["lse_launches"] or not rms["AOT package"] <= bound or \
+            not rms["no attention"] > bound:
+        raise AssertionError("the AOT package's UNet call does not answer as the eager one, "
+                             "or the bound cannot see the attention's answer")
+    # (b) three ways, and (f) their latency, beside the in-process route of phase 5
+    routes = {"AOT package": served_artifact(ops, serve_artifact, out, "aot", ["--prewarm"],
+                                             DDIM_STEPS, 8),
+              "portable program": served_artifact(ops, serve_artifact, out, "portable",
+                                                  ["--no_aot"], DDIM_STEPS, 8)}
+    if routes["AOT package"]["aot"] is not True or routes["portable program"]["aot"]:
+        raise AssertionError("the AOT package did not serve with --prewarm, or did with --no_aot")
+    fresh = subprocess.run([sys.executable, "-c", FRESH_CONSUMER, "--artifact", out,
+                            "--synthetic", str(ARTIFACT_REQUESTS), "--value", "1.0",
+                            "--out", out + ".fresh.npz"], capture_output=True, text=True,
+                           cwd=REPO, timeout=900)
+    found = [ln for ln in fresh.stdout.splitlines() if ln.startswith("FRESH ")]
+    if fresh.returncode != 0 or not found:
+        raise AssertionError(f"the fresh consumer failed:\n{fresh.stdout[-2000:]}\n"
+                             f"{fresh.stderr[-3000:]}")
+    routes["fresh process"] = json.loads(found[0][6:])
+    want = 8 * DDIM_STEPS * (ARTIFACT_REQUESTS // ARTIFACT_BATCH)
+    if routes["fresh process"]["attention_launches"] != want:
+        raise AssertionError(f"fresh process: {routes['fresh process']['attention_launches']} "
+                             f"launches, expected {want}")
+    print(f"(b) the fresh consumer loaded no model code and served with aot "
+          f"{routes['fresh process']['aot']}, {want} launches")
+    cfg, model, _ = serve.load_checkpoint(morpho_ckpt, use_ema=False, device="cuda")
+    requests = serve.synthetic_requests(cfg, ARTIFACT_REQUESTS, SEED)
+    lat = [r["latency_s"] for r in serve.serve(cfg, model, requests, intervene_var=0,
+                                                value=1.0, batch=ARTIFACT_BATCH, seed=SEED)]
+    routes["in-process (phase 5)"] = {"first_call_s": lat[0],
+                                      "steady_batch_s": float(np.mean(lat[1:])),
+                                      "steady_batch_p50_s": float(np.median(lat[1:]))}
+    # (c) the same draws through the artifacts and in-process serving
+    diffusion = create_diffusion(cfg, eval_mode=True)
+    x = torch.from_numpy(requests["x"][:ARTIFACT_BATCH]).cuda()
+    y = torch.from_numpy(requests["y"][:ARTIFACT_BATCH]).cuda()
+    rep_noise, abduction_noise = serving.draw_inputs(man, ARTIFACT_BATCH, SEED + 5, "cuda")
+    filled = serve.load_checkpoint(filled_ckpt, use_ema=False, device="cuda")[1]
+    deltas = {}
+    for label, m, path, package in (("2-step", model, out, True),
+                                    ("filled", filled, fout, False)):
+        direct = make_counterfactual_fn(cfg, m, diffusion, intervene_var=0)(
+            x, {"y": y}, 1.0, rep_noise=rep_noise, abduction_noise=abduction_noise)
+        programs = {"portable program": serving.load_artifact(path)[0]}
+        if package:
+            programs["AOT package"] = serving.load_artifact(path, serving.load_compiled_artifact(
+                path + serving.COMPILED_SUFFIX))[0]
+        for name, fn in programs.items():
+            deltas[f"{label} {name}"] = float((fn(x, y, 1.0, SEED + 5) - direct).abs().max())
+    print("(c) same request and draws, max|Δ| from in-process serving: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in deltas.items()) + f" (atol {atol:.1e})")
+    if not all(v <= atol for v in deltas.values()):
+        raise AssertionError("an artifact's answer is too far from in-process serving's")
+    del model, filled
+    torch.cuda.empty_cache()
+    # (d) DPM++-25 with a symbolic batch, served at 1 and 16
+    pman = mans["poly"]
+    nodes = len(dpm_solver_pp_nodes(diffusion, 2, 25)[0])
+    fn = serving.load_artifact(paths["poly"])[0]
+    for b in (1, ARTIFACT_BATCH):
+        reset_counts(ops)
+        imgs = fn(x[:b], y[:b], 1.0, SEED)
+        torch.cuda.synchronize()
+        if counts(ops) != (8 * nodes, 0, 0) or imgs.shape != (b, 28, 28, 1) or \
+                not bool(torch.isfinite(imgs).all()):
+            raise AssertionError(f"poly artifact at batch {b}: launches {counts(ops)}, shape "
+                                 f"{tuple(imgs.shape)}")
+    print(f"(d) DPM++-25 ({nodes} UNet calls) poly-batch artifact: export {pman['export_s']:.1f} s,"
+          f" verify " + ", ".join(f"batch {v['batch']} {v['max_abs']:.3e}" for v in pman["verify"])
+          + f" (atol {pman['verify'][0]['atol']:.1e}); served at batch 1 and {ARTIFACT_BATCH}, "
+          f"{8 * nodes} launches each")
+    # (e) the pendulum (d = 128, one attention block per UNet call)
+    eman = mans["pendulum"]
+    pfn = serving.load_artifact(paths["pendulum"])[0]
+    reset_counts(ops)
+    pimgs = pfn(torch.zeros(ARTIFACT_BATCH, 96, 96, 4, device="cuda"), 1.0, SEED)
+    torch.cuda.synchronize()
+    if eman["attention_nodes"] != 1 or counts(ops)[1:] != (0, 0) or not counts(ops)[0] or \
+            not bool(torch.isfinite(pimgs).all()):
+        raise AssertionError(f"pendulum artifact: {eman['attention_nodes']} op nodes, launches "
+                             f"{counts(ops)}")
+    print(f"(e) pendulum DPM++-25 artifact: export {eman['export_s']:.1f} s, verify max|Δ| "
+          f"{eman['verify'][0]['max_abs']:.3e} (atol {eman['verify'][0]['atol']:.1e}), "
+          f"{counts(ops)[0]} launches for one chain (1 per UNet call)")
+    # (f) latency at batch 16 through DDIM-250
+    print(f"(f) DDIM-{DDIM_STEPS} at batch {ARTIFACT_BATCH}, host clock: route, first_call_s, "
+          f"steady_batch_s, steady_batch_p50_s")
+    for name, r in routes.items():
+        print(f"    {name:22s} {r['first_call_s']:8.3f} {r['steady_batch_s']:8.3f} "
+              f"{r['steady_batch_p50_s']:8.3f}" + (f"  (prewarm {r['prewarm_s']:.3f} s)"
+                                                   if "prewarm_s" in r else ""))
+    return {"artifact_portable": routes["portable program"]["attention_launches"],
+            "artifact_aot": routes["AOT package"]["attention_launches"],
+            "artifact_fresh_process": routes["fresh process"]["attention_launches"]}
+
+
+def dispatch_cost(ops):
+    """Host microseconds per call of the forward through the dispatcher op
+    and through its ctypes wrapper, at the serving shape: many calls enqueued
+    back to back, timed on the host clock without waiting for the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(ARTIFACT_BATCH, 784, 384, generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for name, fn in (("wrapper", ops.attention_fwd), ("op", torch.ops.causaldiffae.attention_fwd),
+                     ("op", torch.ops.causaldiffae.attention_fwd), ("wrapper", ops.attention_fwd)):
+        for _ in range(20):
+            fn(qkv, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn(qkv, 4)
+        out.setdefault(name, []).append((time.perf_counter() - t0) / 500 * 1e6)
+        torch.cuda.synchronize()
+    return out
+
+
+def other_modules_phase(ops, work):
+    """Phase 15: the super-resolution model, feature_vectors, the native
+    loader and the adjacency validation."""
+    from causaldiffae_torch import validate_adjacency
+    from causaldiffae_torch.config import create_model, create_sr_model, get_config
+    from causaldiffae_torch.data import batch_iterator, synthetic_dataset
+    from causaldiffae_torch.data.loaders import _uint8_pool, make_data_iterator
+    from causaldiffae_torch.data.native_loader import NativeBatchIterator
+
+    cfg = get_config("morphomnist_causaldae")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sr = create_sr_model(cfg, large_size=256, small_size=64)
+    fill_weights_(sr, SEED)
+    n_params = sum(p.numel() for p in sr.parameters())
+    x = torch.randn(4, 256, 256, 1, generator=gen, device="cuda")
+    low = torch.randn(4, 64, 64, 1, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (4,), generator=gen, device="cuda")
+    y = torch.arange(4, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = wall_ms(lambda: sr(x, t, low_res=low, y=y), iters=3, warmup=1)
+        eps, _ = sr(x, t, low_res=low, y=y)
+    if not (eps.shape == (4, 256, 256, 1) and bool(torch.isfinite(eps).all())):
+        raise AssertionError("the SR model's eps is not finite or has the wrong shape")
+    print(f"SR model at 256 from 64 ({n_params / 1e6:.2f} M parameters), bf16, batch 4: "
+          f"{ms:.1f} ms per forward (host clock, synced), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, eps rms {rms(eps):.4f}")
+    del sr, eps
+    torch.cuda.empty_cache()
+    model = create_model(cfg)
+    fill_weights_(model, SEED)
+    with torch.inference_mode():
+        feats = model.feature_vectors(torch.randn(4, 28, 28, 1, generator=gen, device="cuda"),
+                                      t, y=y)
+    levels = len(cfg.channel_mult)
+    want = (1 + levels * cfg.num_res_blocks + levels - 1, levels * (cfg.num_res_blocks + 1))
+    got = (len(feats["down"]), len(feats["up"]))
+    finite = all(bool(torch.isfinite(f).all()) for f in feats["down"] + feats["up"]
+                 + [feats["middle"]])
+    if got != want or not finite:
+        raise AssertionError(f"feature_vectors: {got} down/up activations, the JAX structure has "
+                             f"{want}, finite {finite}")
+    print(f"feature_vectors: {got[0]} down, 1 middle, {got[1]} up activations, as the JAX "
+          f"structure has; middle {tuple(feats['middle'].shape)}")
+    del model, feats
+    data = synthetic_dataset("morphomnist", POOL, seed=SEED)
+    native = make_data_iterator(data, 128, seed=SEED)
+    if not isinstance(native, NativeBatchIterator):
+        raise AssertionError("the native loader did not build or serve")
+    u8, scale, offset = _uint8_pool(data["image"])
+    second = NativeBatchIterator(u8, 128, c=data["c"], y=data["y"], scale=scale, offset=offset,
+                                 seed=SEED)
+    for _ in range(20):
+        a, b = next(native), next(second)
+        if any(not np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError("two native loaders with the same seed gave different batches")
+    rates = {}
+    for name, it in (("native", native), ("numpy", batch_iterator(data, 128, seed=SEED))):
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            next(it)
+        rates[name] = 200 / (time.perf_counter() - t0)
+    native.close()
+    second.close()
+    print(f"native loader at batch 128: route native C++ prefetch ({POOL} samples as uint8), "
+          f"{rates['native']:.0f} batches/s against the numpy batch_iterator's "
+          f"{rates['numpy']:.0f}; 20 batches bit-equal to a second loader from the same seed")
+    out = os.path.join(work, "adjacency.json")
+    res = validate_adjacency.main(["--steps", "20", "--seeds", "0", "--out", out])
+    A = np.asarray(res["runs"][0]["A"])
+    if set(res) != {"preset", "steps", "threshold", "truth", "runs", "pooled"} or \
+            not np.isfinite(A).all() or A.shape != (2, 2):
+        raise AssertionError(f"validate_adjacency: keys {sorted(res)}, A {A}")
+    print(f"validate_adjacency, 20 steps, seed 0: A {A.tolist()}, pooled {res['pooled']}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card")
@@ -1623,6 +2075,10 @@ def main():
                              f"8 x {unet_calls} UNet calls")
     if ops.attention_fwd.lse_launches:
         raise AssertionError(f"{ops.attention_fwd.lse_launches} serving launches wrote lse")
+    cost = dispatch_cost(ops)
+    print(f"host us per forward call at ({ARTIFACT_BATCH}, 784, 4, 32), enqueued back to back, "
+          f"in turns: ctypes wrapper {[round(c, 2) for c in cost['wrapper']]}, dispatcher op "
+          f"{[round(c, 2) for c in cost['op']]}")
 
     phase("6. training: morphomnist_causaldae at full width")
     del model
@@ -1631,7 +2087,18 @@ def main():
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke-", dir=os.path.join(REPO, "build"))
+    exporters = []
     try:  # checkpoints (2.6 GB each for the circuit) and evaluation files
+        from causaldiffae_torch import train
+
+        morpho_ckpt = os.path.join(work, "morpho-ckpt")   # phases 9, 10, 13b and 14 read it
+        t0 = time.perf_counter()
+        train.main(["--preset", "morphomnist_causaldae", "--synthetic", "--total_steps", "2",
+                    "--save_interval", "2", "--log_interval", "1", "--ckpt_dir", morpho_ckpt])
+        print(f"train CLI: 2 steps and a checkpoint in {time.perf_counter() - t0:.2f} s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        filled_ckpt = filled_checkpoint(morpho_ckpt, os.path.join(work, "morpho-filled"),
+                                        SEED + 2)   # read by phase 14
         phase("7. circuit_causaldae at full width: train, checkpoint, resume, serve")
         circuit, _ = cli_phase("circuit_causaldae", ops, gen, os.path.join(work, "circuit"),
                                steps=(4, 6), save_interval=2, sampler="ddim", sample_steps=None,
@@ -1642,19 +2109,25 @@ def main():
                                             os.path.join(work, "pendulum"), steps=(2, 4),
                                             save_interval=2, sampler="dpm++", sample_steps=25,
                                             intervene_var=2)
-
+        # phases 12-13b (timed) run before phase 14's exports start, 8b-11 beside them
+        phase("12. morphomnist_causaldae with the flow prior and dropout at full width")
+        flow = flow_dropout_phase(ops, gen, work)
+        phase("13a. the train CLI under torchrun at world size 1 against the plain CLI")
+        torchrun_phase(work)
+        phase("13b. data parallelism: two gloo ranks on the card against one process")
+        torch.cuda.empty_cache()
+        dp = data_parallel_phase(ops, work, morpho_ckpt)
+        exporters.append(start_exports(work, "morphomnist", [
+            ("ddim", morpho_ckpt, ["--intervene_var", "0", "--aot"])]))
+        exporters.append(start_exports(work, "filled-and-pendulum", [
+            ("ddim_filled", filled_ckpt, ["--intervene_var", "0"]),
+            ("poly", filled_ckpt, ["--intervene_var", "0", "--poly_batch", *DPM25]),
+            ("pendulum", pendulum_ckpt, ["--intervene_var", "2", *DPM25])]))
+        exporters.append(start_call_check(work, filled_ckpt))
         phase("8b. repeatability: train, serve and the probes twice, bit for bit")
         repeatability_phase(work)
         phase("9. morphomnist_causaldae: effectiveness MAE, FID and the rescore")
-        from causaldiffae_torch import train
-
-        morpho_ckpt = os.path.join(work, "morpho-ckpt")
-        t0 = time.perf_counter()
-        train.main(["--preset", "morphomnist_causaldae", "--synthetic", "--total_steps", "2",
-                    "--save_interval", "2", "--log_interval", "1", "--ckpt_dir", morpho_ckpt])
-        print(f"train CLI: 2 steps and a checkpoint in {time.perf_counter() - t0:.2f} s, peak "
-              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-        torch.cuda.reset_peak_memory_stats()  # the phase's peak is then the evaluation's
+        print("on the 2-step checkpoint the train CLI wrote after phase 6")
         evaluation = evaluation_phase("morphomnist_causaldae", ops, morpho_ckpt,
                                       os.path.join(work, "morpho-eval"), num_samples=32,
                                       sampler=None, sample_steps=None, compute_fid=True)
@@ -1664,15 +2137,17 @@ def main():
         evaluation_pendulum = evaluation_phase(
             "pendulum_causaldae", ops, pendulum_ckpt, os.path.join(work, "pendulum-eval"),
             num_samples=16, sampler="dpm++", sample_steps=25, compute_fid=False)
-        phase("12. morphomnist_causaldae with the flow prior and dropout at full width")
-        flow = flow_dropout_phase(ops, gen, work)
-        phase("13a. the train CLI under torchrun at world size 1 against the plain CLI")
-        torchrun_phase(work)
-        phase("13b. data parallelism: two gloo ranks on the card against one process")
+        phase("14. serving artifacts at full width, with the kernel inside")
         torch.cuda.empty_cache()
-        dp = data_parallel_phase(ops, work, morpho_ckpt)
+        artifacts = artifact_phase(ops, exporters, morpho_ckpt, filled_ckpt)
+        phase("15. the SR model, feature_vectors, the native loader, validate_adjacency")
+        other_modules_phase(ops, work)
         phase()
     finally:
+        for proc, _, _ in exporters:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
     def record(name, replaces, recs, launches_by_path):
@@ -1701,7 +2176,7 @@ def main():
                 "evaluation_pendulum": evaluation_pendulum,
                 "training_flow_dropout": flow["attention_fwd"],
                 "training_dp_rank0": dp["training_dp"][0],
-                "evaluation_dp_rank0": dp["evaluation_dp"][0]}),
+                "evaluation_dp_rank0": dp["evaluation_dp"][0], **artifacts}),
         record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
                "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
                {"training": train_launches["attention_bwd"],

@@ -252,3 +252,33 @@ class StepPair:
 
     def jax_grads(self):
         return self.port_sd(self.jstate.opt_state[0])
+
+
+# --------------------------------------------------------------------- #
+# Serving artifacts (tests/test_torch_export.py, test_torch_serve_artifact.py)
+# --------------------------------------------------------------------- #
+def make_checkpoint(path, **overrides):
+    """A tiny model with every weight filled, saved as the train CLI saves
+    (respaced to 4 steps, abduction at t=3)."""
+    import torch
+
+    from causaldiffae_torch.config import Config, create_model
+    from causaldiffae_torch.training import CheckpointManager
+    from causaldiffae_torch.training.state import create_train_state
+    from causaldiffae_torch.utils.weights import fill_normal_
+
+    cfg = Config(**tiny_kwargs(eval_timestep_respacing="4", abduction_t=3, **overrides))
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        model = create_model(cfg, device="cpu")
+    fill_normal_(model, torch.Generator().manual_seed(0), std=0.05)
+    CheckpointManager(str(path), config=cfg).save(1, create_train_state(cfg, model))
+    return str(path)
+
+
+def export(ckpt, out, *argv):
+    """``export_serving``'s main on the CPU; returns the manifest."""
+    from causaldiffae_torch import export_serving
+
+    return export_serving.main(["--ckpt_dir", ckpt, "--out", str(out), "--device", "cpu",
+                                *argv])

@@ -149,7 +149,7 @@ def test_attention_block_routing(monkeypatch, C, heads, dtype, expect):
                         lambda q, h: calls.append("hm") or ops.attention_plain(q, h))
     real = attn_mod.qkv_attention
     monkeypatch.setattr(attn_mod, "qkv_attention",
-                        lambda q, h: calls.append("einsum") or real(q, h))
+                        lambda q, h, scale=None: calls.append("einsum") or real(q, h, scale))
     block = AttentionBlock(C, heads, use_kernels=True, dtype=dtype)
     x = torch.from_numpy(np.random.RandomState(3).randn(2, C, 7, 7).astype(np.float32)).to(dtype)
     out = block(x)

@@ -215,3 +215,20 @@ def test_attention_bwd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_devi
         ops.attention_bwd(qkv, g, 2)
     with pytest.raises(ValueError):      # lse not in the forward kernel's layout
         ops.attention_bwd(qkv, g, 2, out, lse.contiguous())
+
+
+@pytest.mark.cuda
+def test_attention_op_launches_the_kernel(cuda_device):
+    """``torch.ops.causaldiffae.attention_fwd`` (the op a serving artifact's
+    graph calls) launches the kernel once per call, writes no lse, and gives
+    the wrapper's output bit for bit; a no-grad ``fused_qkv_attention`` goes
+    through it."""
+    qkv = _qkv(16, 784, 4, 32, cuda_device, seed=3)
+    n, lse = ops.attention_fwd.launches, ops.attention_fwd.lse_launches
+    got = torch.ops.causaldiffae.attention_fwd(qkv, 4)
+    with torch.no_grad():
+        routed = ops.fused_qkv_attention_t(qkv, 4)
+    torch.cuda.synchronize()
+    assert ops.attention_fwd.launches == n + 2 and ops.attention_fwd.lse_launches == lse
+    want = ops.attention_fwd(qkv, 4)
+    assert torch.equal(got, want) and torch.equal(routed, want)

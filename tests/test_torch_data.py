@@ -207,7 +207,7 @@ def test_load_data_dispatch_matches_jax(morphomnist_dir, pendulum_dir, circuit_d
                              (circuit_dir, 32, {"image", "c"}),
                              (folder_dir, 16, {"image", "y"})):
         kw = dict(data_dir=root, batch_size=3, image_size=size, class_cond=True, seed=4)
-        got, want = tl.load_data(**kw), jl.load_data(native=False, **kw)
+        got, want = tl.load_data(native=False, **kw), jl.load_data(native=False, **kw)
         for _ in range(3):
             batch = next(got)
             assert set(batch) == keys
