@@ -118,10 +118,10 @@ class Config:
     log_interval: int = 10
     save_interval: int = 10000
     schedule_sampler: str = "uniform"
-    use_remat: bool = False
+    use_remat: bool = False       # recompute each ResBlock in the backward pass
     skip_nonfinite: bool = True
     seed: int = 0
-    model_parallel: int = 1
+    model_parallel: int = 1       # TP ranks per data row (parallel/grid.py)
 
     # --- eval ---
     eval_timestep_respacing: str = "250"
@@ -193,6 +193,7 @@ def create_model(cfg: Config, device="cuda"):
         reparam_var_scale=cfg.reparam_var_scale,
         dtype=cfg.dtype,
         use_kernels=cfg.use_kernels,
+        use_remat=cfg.use_remat,
     )
     return model.to(device).eval()
 

@@ -41,7 +41,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..config import DATA_SCALES
-from ..parallel import local_batch_size, rank, world_size
+from ..parallel import dp_rank, dp_size, local_batch_size
 
 __all__ = ["load_idx", "save_idx", "load_morphomnist", "load_pendulum",
            "load_circuit", "load_image_folder", "rank_shard", "batch_iterator",
@@ -194,11 +194,13 @@ def load_image_folder(root: str, image_size: int, class_cond: bool = False) -> D
 
 def rank_shard(data: Dict[str, np.ndarray], batch_size: int):
     """(this rank's ``[rank::W]`` slice of ``data``, its ``batch_size / W`` rows
-    per batch); ``(data, batch_size)`` in one process."""
-    W = world_size()
+    per batch); ``(data, batch_size)`` in one process. Under tensor
+    parallelism W and rank are the DP size and rank: the TP ranks of a data
+    row feed the same rows."""
+    W = dp_size()
     if W == 1:
         return data, batch_size
-    r = rank()
+    r = dp_rank()
     return {k: v[r::W] for k, v in data.items()}, local_batch_size(batch_size, W)
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import sum_across_ranks
+from ..parallel.grid import dp_group
 from .losses import discretized_gaussian_log_likelihood, kl_normal, mean_flat, normal_kl
 from .respace import respace_schedule, space_timesteps
 from .schedule import DiffusionSchedule, get_named_beta_schedule, make_schedule
@@ -342,8 +343,8 @@ class GaussianDiffusion:
         against an all-dropped batch); without one, per sample [N]. The mask
         is the keep-mask [N], or the flow prior's scalar -mean(log_det),
         whose sum is itself. Under data parallelism both sums run over the
-        global batch (``parallel.sum_across_ranks``; the flow's mask is
-        global already), as the JAX step's do: each rank then holds the
+        global batch (``parallel.sum_across_ranks`` over the DP group, whose
+        ranks hold different rows; the flow's mask is global already), as the JAX step's do: each rank then holds the
         global scalar, and its gradient reaches every rank's rows.
         """
         num_vars = c.shape[1]
@@ -356,8 +357,8 @@ class GaussianDiffusion:
         if mask is None:
             return kld
         if mask.ndim == 0:
-            return sum_across_ranks((kld * mask).sum()) / mask.clamp(min=1.0)
-        num, count = sum_across_ranks(torch.stack([(kld * mask).sum(), mask.sum()]))
+            return sum_across_ranks((kld * mask).sum(), dp_group()) / mask.clamp(min=1.0)
+        num, count = sum_across_ranks(torch.stack([(kld * mask).sum(), mask.sum()]), dp_group())
         return num / count.clamp(min=1.0)
 
     def training_losses(self, forward_fn: Callable[[torch.Tensor, torch.Tensor],

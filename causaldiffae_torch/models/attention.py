@@ -25,7 +25,8 @@ from .layers import GroupNorm32
 
 def einsum_scale(d: int, dtype: torch.dtype) -> float:
     """``1 / dtype(d^1/4)`` in ``dtype``, the einsum path's scale, as a float."""
-    root = torch.sqrt(torch.sqrt(torch.tensor(float(d), dtype=torch.float32))).to(dtype)
+    root = torch.sqrt(torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
+                                              device="cpu"))).to(dtype)  # under any default device
     return float(1.0 / root)
 
 

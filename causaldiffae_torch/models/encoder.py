@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.collectives import sum_across_ranks, world_size
+from ..parallel.collectives import sum_across_ranks
+from ..parallel.grid import dp_group, dp_size
 from .layers import conv
 
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
@@ -38,8 +39,9 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, over_ranks: bool) -> t
     the same mean and variance normalise the batch,
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. With ``over_ranks``
     under data parallelism the sums and the count are the global batch's
-    (``parallel.sum_across_ranks``, whose gradient flows back to every rank;
-    the ranks' shares are equal), as the JAX step takes them over its
+    (``parallel.sum_across_ranks`` over the DP group, whose gradient flows
+    back to every rank; the ranks' shares are equal), as the JAX step takes
+    them over its
     global array; ``nn.SyncBatchNorm``
     would not do: it updates the running variance with the unbiased
     estimate. The running buffers are updated IN PLACE, under ``no_grad``,
@@ -50,7 +52,7 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, over_ranks: bool) -> t
     n = x32.numel() // x32.shape[1]
     sums = torch.stack([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))])
     if over_ranks:
-        sums, n = sum_across_ranks(sums), n * world_size()
+        sums, n = sum_across_ranks(sums, dp_group()), n * dp_size()
     mean = sums[0] / n
     var = (sums[1] / n - mean * mean).clamp(min=0.0)
     with torch.no_grad():

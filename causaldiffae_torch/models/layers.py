@@ -10,12 +10,15 @@ conv is zero-initialised. Attribute names follow the reference torch
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.collectives import copy_to_group, reduce_from_group
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -113,6 +116,16 @@ class Downsample(nn.Module):
         return conv(self.op, x, self.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """A ResBlock's place in its TP group: ``rank`` of ``size`` ranks, which
+    holds output channels ``channels`` of the block's conv pair."""
+    group: Any
+    rank: int
+    size: int
+    channels: slice
+
+
 class ResBlock(nn.Module):
     """Residual block with (scale-shift) GroupNorm timestep conditioning.
 
@@ -122,10 +135,24 @@ class ResBlock(nn.Module):
     kept entries are divided by the keep probability in h's dtype (bf16 in
     the bf16 torso), the others zeroed. Its mask does not come from torch's
     global RNG: ``forward`` takes ``drop``, a callable that returns the keep
-    mask (0/1) for h's shape. The UNet hands every ResBlock the same one, so
-    it is called once per block in the order the blocks run; the train step
-    draws from its (seed, step) generator through it, and a test replays
-    flax's masks through it.
+    mask (0/1) for a shape, always the block's full output shape. The UNet
+    hands every ResBlock the same one, so it is called once per block in the
+    order the blocks run; the train step draws from its (seed, step)
+    generator through it, and a test replays flax's masks through it.
+    :meth:`keep_mask` draws it and :meth:`block` is the rest, so that remat
+    (``CausalUNet._apply_seq``) draws outside the recomputed region.
+
+    Tensor parallelism (``parallel/partition.py`` sets ``tp``): Megatron's
+    sharding of the conv pair over the TP group. ``in_layers.2`` holds this
+    rank's output channels (column parallel), ``out_layers.0`` their
+    GroupNorm (whole groups, ``32 / size`` of them), ``out_layers.3`` the
+    same channels as its input (row parallel, its bias whole). The replicated
+    h after ``in_layers.0`` and the replicated ``emb_layers`` output enter
+    the shard through f (their gradients summed over the group), the row
+    conv's partial outputs leave it through g (summed, in the compute dtype),
+    and its bias is added once, after g. The scale and shift are this rank's
+    channels of each half of the embedding projection, and the dropout mask
+    is drawn at full width and cut, so the draws stay those of one process.
     """
 
     def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
@@ -137,6 +164,7 @@ class ResBlock(nn.Module):
         self.out_channels = out_ch
         self.use_scale_shift_norm = use_scale_shift_norm
         self.dtype = dtype
+        self.tp: Optional[TensorShard] = None
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), conv3x3(channels, out_ch))
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch if use_scale_shift_norm else out_ch))
@@ -148,31 +176,69 @@ class ResBlock(nn.Module):
         else:
             self.skip_connection = nn.Conv2d(channels, out_ch, 1)
 
-    def dropout(self, h: torch.Tensor, drop: Optional[Callable[[torch.Size], torch.Tensor]]):
+    def keep_mask(self, x: torch.Tensor, drop: Optional[Callable[[torch.Size], torch.Tensor]]
+                  ) -> Optional[torch.Tensor]:
+        """The dropout keep mask (bool) of the block's hidden h for the input
+        (or hidden) ``x``: ``drop`` called with the block's full output shape,
+        then cut to this rank's channels. None where dropout does not act."""
         rate = self.out_layers[2].p
         if not (self.training and rate > 0):
-            return h
+            return None
         if drop is None:
             raise ValueError("a ResBlock with dropout in train mode needs its mask source")
-        keep = drop(h.shape).to(device=h.device, dtype=torch.bool)
-        keep_prob = torch.tensor(1.0 - rate, dtype=h.dtype)
+        shape = torch.Size((x.shape[0], self.out_channels, *x.shape[2:]))
+        keep = drop(shape).to(device=x.device, dtype=torch.bool)
+        return keep if self.tp is None else keep[:, self.tp.channels]
+
+    def apply_dropout(self, h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None:
+            return h
+        keep_prob = torch.tensor(1.0 - self.out_layers[2].p, dtype=h.dtype)
         return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def dropout(self, h: torch.Tensor, drop: Optional[Callable[[torch.Size], torch.Tensor]]):
+        """Dropout of the hidden ``h`` with a mask from ``drop``."""
+        return self.apply_dropout(h, self.keep_mask(h, drop))
+
+    def scale_shift(self, emb_out: torch.Tensor):
+        """(scale, shift) of this rank's channels: each half of the
+        projection ``[scale | shift]``, cut to them."""
+        scale, shift = torch.chunk(emb_out, 2, dim=-1)
+        if self.tp is None:
+            return scale, shift
+        return scale[:, self.tp.channels], shift[:, self.tp.channels]
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 drop: Optional[Callable[[torch.Size], torch.Tensor]] = None) -> torch.Tensor:
+        return self.block(x, emb, self.keep_mask(x, drop))
+
+    def block(self, x: torch.Tensor, emb: torch.Tensor,
+              keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """The block on ``x`` with the dropout keep mask ``keep`` (or None)."""
         dt = self.dtype
-        h = self.in_layers[0](x, silu_after=True)
-        h = conv(self.in_layers[2], h, dt)
-        emb_out = linear(self.emb_layers[1], silu(emb), dt).to(h.dtype)
-        if self.use_scale_shift_norm:
-            scale, shift = torch.chunk(emb_out, 2, dim=-1)
-            h = self.out_layers[0](h, scale_shift=(scale, shift), silu_after=True)
-        else:
-            h = h + emb_out[:, :, None, None]
-            h = self.out_layers[0](h, silu_after=True)
-        h = conv(self.out_layers[3], self.dropout(h, drop), dt)
+        tp = self.tp
+        # the skip first: remat's recompute, which stops at the last tensor
+        # the backward saved, then ends before g (no repeated all-reduce)
         if isinstance(self.skip_connection, nn.Conv2d):
             skip = conv(self.skip_connection, x, dt)
         else:
             skip = x
+        h = self.in_layers[0](x, silu_after=True)
+        emb_out = linear(self.emb_layers[1], silu(emb), dt)
+        if tp is not None:
+            h, emb_out = copy_to_group(h, tp.group), copy_to_group(emb_out, tp.group)
+        h = conv(self.in_layers[2], h, dt)
+        if self.use_scale_shift_norm:
+            h = self.out_layers[0](h, scale_shift=self.scale_shift(emb_out), silu_after=True)
+        else:
+            part = emb_out if tp is None else emb_out[:, tp.channels]
+            h = h + part[:, :, None, None]
+            h = self.out_layers[0](h, silu_after=True)
+        h = self.apply_dropout(h, keep)
+        out = self.out_layers[3]
+        if tp is None:
+            h = conv(out, h, dt)
+        else:
+            h = F.conv2d(h.to(dt), out.weight.to(dt), None, out.stride, out.padding)
+            h = reduce_from_group(h, tp.group) + out.bias.to(dt)[:, None, None]
         return skip + h

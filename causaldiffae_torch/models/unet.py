@@ -36,7 +36,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.collectives import sum_across_ranks, world_size
+from torch.utils.checkpoint import checkpoint
+
+from ..parallel.collectives import sum_across_ranks
+from ..parallel.grid import dp_group, dp_size
 from .attention import AttentionBlock
 from .encoder import GaussianConvEncoder
 from .layers import Downsample, GroupNorm32, ResBlock, Upsample, conv, conv3x3, silu, timestep_embedding
@@ -64,7 +67,8 @@ class CausalUNet(nn.Module):
                  use_scale_shift_norm: bool = False, n_vars: int = 4,
                  adjacency=None, learn_adjacency: bool = False, masking: bool = False,
                  drop_prob: float = 0.5, reparam_var_scale: float = 1e-3,
-                 dtype: torch.dtype = torch.float32, use_kernels: bool = False):
+                 dtype: torch.dtype = torch.float32, use_kernels: bool = False,
+                 use_remat: bool = False):
         super().__init__()
         self.model_channels = model_channels
         self.num_classes = num_classes
@@ -77,6 +81,7 @@ class CausalUNet(nn.Module):
         self.drop_prob = drop_prob
         self.reparam_var_scale = reparam_var_scale
         self.dtype = dtype
+        self.use_remat = use_remat
         ted = model_channels * 4
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
 
@@ -145,9 +150,18 @@ class CausalUNet(nn.Module):
 
     # ------------------------------------------------------------------ #
     def _apply_seq(self, modules, h, emb, drop):
+        """With ``use_remat`` and autograd recording, each ResBlock runs under
+        ``torch.utils.checkpoint`` (non-reentrant), as ``nn.remat(ResBlock)``
+        does: its activations are recomputed in the backward pass. Its
+        dropout mask is drawn before, outside the recomputed region, so the
+        recompute draws nothing and remat changes no value."""
         for m in modules:
             if isinstance(m, ResBlock):
-                h = m(h, emb, drop)
+                if self.use_remat and torch.is_grad_enabled():
+                    h = checkpoint(m.block, h, emb, m.keep_mask(h, drop), use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    h = m(h, emb, drop)
             elif isinstance(m, nn.Conv2d):
                 h = conv(m, h, self.dtype)
             else:
@@ -222,11 +236,12 @@ class CausalUNet(nn.Module):
     def flow_prior(self, mu):
         """(z_post, mask) of the flow prior: z_post = flow(mu, C) and the
         scalar mask -mean(log_det) of its reverse pass, the mean over the
-        global batch under data parallelism (``parallel.sum_across_ranks``,
-        whose gradient reaches every rank's flow; the ranks' shares are equal)."""
+        global batch under data parallelism (``parallel.sum_across_ranks``
+        over the DP group, whose gradient reaches every rank's flow; the
+        ranks' shares are equal)."""
         z_post, _ = self.causal_flow.flow(mu, self.flow_C)
         log_det, _ = self.causal_flow.reverse(z_post, self.flow_C)
-        return z_post, -sum_across_ranks(log_det.sum()) / (len(log_det) * world_size())
+        return z_post, -sum_across_ranks(log_det.sum(), dp_group()) / (len(log_det) * dp_size())
 
     def forward(self, x, t, y=None, c=None, x_start=None, z=None, *,
                 rep_noise: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
@@ -241,7 +256,8 @@ class CausalUNet(nn.Module):
         keep-mask per sample gates both z and z_post and is the mask.
         ``rep_noise`` (the reparameterization's standard normal draw, z_post's
         shape), ``keep`` ([B] of 0/1) and the dropout masks (``drop``, see
-        :meth:`denoise`) are used when given, else drawn from ``generator``.
+        :meth:`denoise`; each asked for at its block's full width, also under
+        tensor parallelism) are used when given, else drawn from ``generator``.
         x, x_start and eps are NHWC.
         """
         aux = {}

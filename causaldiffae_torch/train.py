@@ -25,6 +25,15 @@ its shard of the data and trains the DDP-wrapped model (``parallel/``).
 ranks take the step one process at that batch takes; the primary rank
 alone logs and writes checkpoints.
 
+Tensor parallelism: ``--model_parallel k`` groups the W ranks into W/k data
+rows of k model ranks (the model rank innermost) and cuts every ResBlock's
+conv pair over the k ranks of a row, Megatron's way (``parallel/grid.py``,
+``parallel/partition.py``); the rest of the model is replicated, and DDP
+runs over the W/k ranks of each model column. k must divide W; one process
+takes only k = 1. The checkpoints hold the whole model, so they resume at
+any k and the serve and evaluation CLIs load them. ``--use_remat true``
+recomputes each ResBlock in the backward pass (less memory, more time).
+
 Usage:
   python -m causaldiffae_torch.train --preset circuit_causaldae --synthetic \\
       --logdir runs/circuit --total_steps 20000
@@ -33,6 +42,8 @@ Usage:
   python -m causaldiffae_torch.train ... --device cpu
   torchrun --nproc_per_node 8 -m causaldiffae_torch.train --preset morphomnist_causaldae \
       --synthetic --batch_size 128 --ckpt_dir ckpt/morpho
+  torchrun --nproc_per_node 4 -m causaldiffae_torch.train --preset circuit_causaldae \
+      --synthetic --model_parallel 2 --use_remat true --ckpt_dir ckpt/circuit
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ import torch
 from .config import create_diffusion, get_config
 from .data import load_data, synthetic_iterator
 from .ops import _build
-from .parallel import init_from_env
+from .parallel import init_from_env, init_grid
 from .serve import build_model, str2bool
 from .training import run_training
 from .training.state import TrainState
@@ -55,10 +66,11 @@ from .utils import determinism, logger
 OVERRIDES = [("batch_size", int), ("microbatch", int), ("lr", float), ("total_steps", int),
              ("lr_anneal_steps", int), ("log_interval", int), ("save_interval", int),
              ("diffusion_steps", int), ("seed", int), ("ema_rate", str),
-             ("schedule_sampler", str), ("weight_decay", float), ("kl_anneal_steps", int)]
+             ("schedule_sampler", str), ("weight_decay", float), ("kl_anneal_steps", int),
+             ("model_parallel", int)]
 BOOL_OVERRIDES = ("use_bf16", "flow_based", "learn_sigma", "learn_adjacency", "use_kl",
-                  "predict_xstart", "masking", "causal_modeling", "use_kernels")
-POSITIVE = ("batch_size", "total_steps", "log_interval", "save_interval")
+                  "predict_xstart", "use_remat", "masking", "causal_modeling", "use_kernels")
+POSITIVE = ("batch_size", "total_steps", "log_interval", "save_interval", "model_parallel")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -96,6 +108,10 @@ def main(argv: Optional[List[str]] = None) -> Tuple[TrainState, List[dict]]:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
     device = init_from_env(args.device)  # under torchrun: this rank's card
+    try:
+        init_grid(cfg.model_parallel)  # before the data: a data row feeds its TP ranks alike
+    except ValueError as e:
+        raise SystemExit(f"--model_parallel {cfg.model_parallel}: {e}") from None
     if device.startswith("cuda") and cfg.use_kernels and cfg.use_bf16:
         _build.build("attention_fwd")  # at start-up, not inside the first step
         _build.build("attention_bwd")

@@ -26,6 +26,14 @@ from the latest checkpoint.
   every rank resumes from the same one. A signal reaches the ranks at
   different steps, so they agree on it through that reduction and stop
   together at the step after the next log interval that reads it.
+- Tensor parallelism (``cfg.model_parallel = k > 1``): the ranks form the
+  grid of ``parallel/grid.py``; the loop cuts the model's ResBlock conv
+  pairs to this rank's shard (``parallel/partition.py``) before the
+  optimizer and the EMA see them, and wraps it in DDP over its DP group
+  when that has more than one rank. ``data`` then yields the data row's
+  share, the same on the k ranks of a row; the metrics are reduced over the
+  DP group, the signal over every rank. Checkpoints hold the whole model
+  (``training/checkpoint.py``).
 
 Each record goes to the logger (``logkv_mean``/``dumpkvs``: progress.csv,
 progress.json, log.txt as configured) and, as one JSON line, to stdout. Its
@@ -47,7 +55,9 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
-from ..parallel import is_primary, reduce_metrics, world_size
+from ..parallel import (dp_group, dp_size, init_grid, is_primary, reduce_metrics,
+                        sum_across_ranks, world_size)
+from ..parallel.partition import shard_model_, unet_shard_plan
 from ..utils import logger
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
@@ -114,8 +124,8 @@ def _note(msg: str) -> None:
 
 
 def wrap_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
-    """``model`` in ``DistributedDataParallel`` under ``torch.distributed``,
-    else ``model``.
+    """``model`` in ``DistributedDataParallel`` over the DP group when that
+    has more than one rank, else ``model``.
 
     Buffers are not synced at each forward (``broadcast_buffers=False``):
     the encoder's BatchNorm statistics are the global batch's on every rank
@@ -124,7 +134,7 @@ def wrap_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
     ``find_unused_parameters`` only where a config leaves parameters out of
     the loss, or DDP's reducer would wait for their gradients: the flow
     prior built (``flow_based``) but not used (no ``causal_modeling``)."""
-    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+    if dp_size() == 1:
         return model
     dev = torch.device(device)
     ids = [dev.index if dev.index is not None else torch.cuda.current_device()] \
@@ -132,7 +142,8 @@ def wrap_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
     # torch 2.13 renames the flag (a FutureWarning for the old name)
     no_sync = ("forward_sync_buffers" if "forward_sync_buffers"
                in inspect.signature(DistributedDataParallel).parameters else "broadcast_buffers")
-    return DistributedDataParallel(model, device_ids=ids, **{no_sync: False},
+    return DistributedDataParallel(model, device_ids=ids, process_group=dp_group(),
+                                   **{no_sync: False},
                                    find_unused_parameters=cfg.flow_based
                                    and not cfg.causal_modeling)
 
@@ -148,8 +159,13 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
     Weights already in ``model`` (from ``--init_from``) seed the state, EMA
     copies included; a checkpoint, when there is one, replaces them. Each
     checkpoint records ``cfg``. Under ``torch.distributed`` every rank calls
-    this with the same model and config and its share of the data.
+    this with the same model and config and its share of the data; with
+    ``cfg.model_parallel > 1`` the model is cut to this rank's shard in
+    place (it must not be sharded yet).
     """
+    grid = init_grid(cfg.model_parallel)
+    if grid.tp > 1:
+        shard_model_(model, unet_shard_plan(model, grid.tp))
     state = create_train_state(cfg, model)
     ckpt = CheckpointManager(ckpt_dir, config=cfg) if ckpt_dir else None
     if resume and ckpt is not None and ckpt.latest_step() is not None:
@@ -216,10 +232,11 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
             next_batch = feed.fetch()
             if state.step % log_interval == 0 or state.step == total_steps:
                 stamp = time.perf_counter()
-                if agree:
-                    metrics["signalled"] = torch.full((), float(bool(preempted)),
-                                                      device=metrics["loss"].device)
-                started = (state.step, stamp, _start_readback(reduce_metrics(metrics)))
+                reduced = reduce_metrics(metrics, dp_group())
+                if agree:  # every rank's, the TP ranks of a row included
+                    reduced["signalled"] = sum_across_ranks(torch.full(
+                        (), float(bool(preempted)), device=metrics["loss"].device))
+                started = (state.step, stamp, _start_readback(reduced))
                 log_pending()
                 pending = started
             if ckpt is not None and state.step % cfg.save_interval == 0:

@@ -16,7 +16,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.collectives import gather_across_ranks, world_size
+from ..parallel.collectives import gather_across_ranks
+from ..parallel.grid import dp_group, dp_size
 
 __all__ = ["init_sampler_state", "sampler_weights", "sample_timesteps",
            "timestep_weights", "update_sampler_state"]
@@ -78,17 +79,20 @@ def update_sampler_state(state: SamplerState, t: torch.Tensor, losses: torch.Ten
     shift out the oldest. Reads t and the losses back to the host.
 
     Under data parallelism each rank passes its own rows' pairs and their
-    places in the global batch (``rows``): every rank gathers all ranks'
-    pairs and pushes them in global batch order, so that every rank's
+    places in the global batch (``rows``): every rank gathers the pairs of
+    its DP group (whose ranks hold different rows) and pushes them in global
+    batch order, so that every rank's
     history is the one a single process at the global batch keeps
     (``causaldiffae_tpu/training/samplers.py:5-9``)."""
     if state is None:
         return None
     t_np = t.cpu().numpy()
     l_np = losses.detach().float().cpu().numpy()
-    if rows is not None and world_size() > 1:
-        order = np.argsort(gather_across_ranks(np.asarray(rows, np.int64)), kind="stable")
-        t_np, l_np = gather_across_ranks(t_np)[order], gather_across_ranks(l_np)[order]
+    if rows is not None and dp_size() > 1:
+        group = dp_group()
+        order = np.argsort(gather_across_ranks(np.asarray(rows, np.int64), group), kind="stable")
+        t_np = gather_across_ranks(t_np, group)[order]
+        l_np = gather_across_ranks(l_np, group)[order]
     history, counts = state["history"].copy(), state["counts"].copy()
     size = history.shape[1]
     for ti, li in zip(t_np.tolist(), l_np.tolist()):

@@ -9,7 +9,14 @@ MEAN losses, and the encoder's BatchNorm running statistics thread through
 the microbatches in order (they update in place on each forward). Under
 data parallelism (``make_train_step`` on a DDP-wrapped model) W ranks take
 the step one process at the global batch takes: the same global draws,
-each rank its rows, and every batch reduction global.
+each rank its rows, and every batch reduction global. Under tensor
+parallelism (a model cut by ``parallel.shard_model_``) the W ranks are a
+grid of data rows by TP ranks: the TP ranks of a row hold the same rows and
+take the same draws, so "rank" and "W" here are the DP rank and size, the
+batch reductions run over the DP group, and the grad and param norms sum
+the sharded tensors' squares over the TP group and count the replicated
+ones once, so that every rank holds the same norms and skips a step with
+all the others. The EMA runs on each rank's shard.
 
 The metrics come back as tensors on the device, so a step does not
 synchronise the host; the loop reads them at its log interval. (The
@@ -26,7 +33,8 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from ..diffusion.process import GaussianDiffusion
-from ..parallel import rank, rank_rows, world_size
+from ..parallel import dp_rank, dp_size, rank_rows, tp_group
+from ..parallel.collectives import all_reduce_
 from .samplers import sample_timesteps, timestep_weights, update_sampler_state
 from .state import TrainState, anneal_lr_, ema_rates, kl_weight_for_step
 
@@ -35,10 +43,18 @@ __all__ = ["make_train_step", "compute_losses", "global_norm", "step_seed"]
 DRAW_KEYS = ("t", "noise", "rep_noise", "keep")
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, in fp32."""
+def global_norm(tensors, sharded=None) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, in fp32. ``sharded``: (the
+    tensors' 0/1 flags, fp32, the TP group) when some are shards of a tensor
+    cut over that group, whose squares are then summed over it (one
+    all-reduce; no host sync)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if sharded is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    flags, group = sharded
+    squares = torch.stack(norms).pow(2)
+    parts = all_reduce_((squares * flags).sum(), group)
+    return torch.sqrt(parts + (squares * (1 - flags)).sum())
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -95,6 +111,9 @@ def _rank_draws(cfg, draws, gen, micro: int, k: int, mine: slice, image_shape,
     ``draws`` when handed in, else from ``gen``; and the dropout mask
     source, which draws from ``gen`` as the ResBlocks run."""
     rows = slice(k * micro, (k + 1) * micro)
+    # the ResBlocks ask for their full width, also where tensor parallelism
+    # cuts them (``ResBlock.keep_mask``), so every TP rank draws what one
+    # process draws
 
     def draw(key, make):
         return (draws[key][rows] if key in draws else make())[mine]
@@ -141,13 +160,19 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
     rates = [(r, float(r)) for r in ema_rates(cfg)]
     named = list(base.named_parameters())
     params = [p for _, p in named]
+    plan = getattr(base, "shard_plan", None)
+    sharded = None
+    if plan is not None and plan.leaves:
+        flags = torch.tensor([float(n in plan.leaves) for n, _ in named],
+                             device=params[0].device)
+        sharded = (flags, tp_group())
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         base.train()
         images = batch["image"]
         n = images.shape[0]
-        W, r = world_size(), rank()
+        W, r = dp_size(), dp_rank()
         B = n * W
         device = images.device
         cond = {k: v for k, v in batch.items() if k != "image"}
@@ -190,7 +215,7 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
         for p in params:  # as jax.grad, every parameter has a gradient (zeros if unused)
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grad_norm = global_norm([p.grad for p in params])
+        grad_norm = global_norm([p.grad for p in params], sharded)
         nonfinite = (~torch.isfinite(grad_norm)).float()
         optimizer.found_inf = nonfinite if cfg.skip_nonfinite else None
         anneal_lr_(optimizer, cfg)
@@ -205,7 +230,7 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
         metrics = {
             "loss": (loss_vec * weights).mean(),
             "grad_norm": grad_norm,
-            "param_norm": global_norm([p.detach() for p in params]),
+            "param_norm": global_norm([p.detach() for p in params], sharded),
             "kl_weight": torch.tensor(kl_weight, dtype=torch.float32, device=device),
         }
         if "mse" in terms:

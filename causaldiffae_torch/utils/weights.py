@@ -6,7 +6,9 @@ the port's ``state_dict`` under the reference torch keys. It is the port's
 own copy of the export walk in ``causaldiffae_tpu/utils/torch_port.py``
 (``_unet_walk`` at ``:102-140``, ``export_torch_state_dict`` at
 ``:282-411``) and imports none of it. A reference ``.pt`` needs no
-conversion: it loads into the port directly.
+conversion: it loads into the port directly. Under tensor parallelism the
+result is the whole model's state; ``parallel.partition.shard_state_dict``
+cuts it to a rank's shard.
 
 Layouts: Linear (in, out) -> (out, in); Conv2d (kh, kw, in, out) ->
 (out, in, kh, kw); the attention's qkv/proj_out dense -> Conv1d (out, in, 1);

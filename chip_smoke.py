@@ -113,9 +113,9 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    in the archive (``process_count`` 2). The kernels were built in this
    process (phase 2); each rank loads them;
 14. serving artifacts at full width. Four jobs run in processes of their
-   own (an AOTInductor compile takes minutes), started after phase 13b so
-   that the timed phases 7, 8, 12 and 13 run on a quiet host and card,
-   beside phases 8b, 9, 10 and 11, which run after 13b: the morphomnist
+   own (an AOTInductor compile takes minutes), started after phase 16 so
+   that the timed phases 7, 8, 12, 13 and 16 run on a quiet host and card,
+   beside phases 8b, 9, 10 and 11, which run after 16: the morphomnist
    DDIM-250 counterfactual at batch 16 with its AOT package, from the train
    CLI's 2-step checkpoint (written after phase 6; phases 9, 10 and 13b read
    it); the same chain without a package and a DPM++-25 one with a symbolic
@@ -147,7 +147,28 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    (its route, batches/s against the numpy iterator, two loaders from one
    seed bit-equal) and ``validate_adjacency`` for 20 steps.
 
-The phases run in the order 1-8, 12, 13a, 13b, 8b, 9, 10, 11, 14, 15.
+16a. tensor parallelism at full width: two gloo ranks on the card, tp = 2,
+   dp = 1, with remat, ``morphomnist_causaldae`` at batch 128 through
+   ``run_training`` with ``model_parallel = 2``: step 1 and a checkpoint,
+   then a fresh model that resumes from it to step 3. Step 1's gradient,
+   gathered from the shards and bit-equal on the two ranks, against one
+   process's on the same filled weights and draws: no farther from the
+   gradient with fp64 attention than 1.5x the plain attention's, and no
+   farther from one process's than 1.5x the plain attention's stands from
+   the kernels' (bf16 moves this gradient ~2e-2 under any rounding change);
+   in fp32, within 1e-2 of one process's; the step-3 checkpoint (a
+   one-process file) against a one-process run's: the same keys and
+   shapes, the params within 1e-2.
+   Prints the 23 sharded ResBlocks, the kernels' launches per rank per step
+   (8 forward with lse, 8 backward), the TP all-reduces per rank per step
+   (forward, backward, remat's recompute and the norms apart), peak memory
+   and wall time per step per rank;
+16b. ``use_remat`` at full width in one process: the flagship's first step
+   with and without it, each on a fresh state: the same loss and gradients
+   (bit-equal under ``determinism.pin``, or within 1e-2) and each one's
+   peak memory; then each one's device time per step, in turns.
+
+The phases run in the order 1-8, 12, 13a, 13b, 16a, 16b, 8b, 9, 10, 11, 14, 15.
 Each phase prints its wall time. Prints the card line and one
 ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -1533,6 +1554,258 @@ def data_parallel_phase(ops, work, ckpt):
     return {"training_dp": train[0]["launches"], "evaluation_dp": ev[0]["launches"]}
 
 
+TP_STEPS = 3          # phase 16a: step 1, a checkpoint, then a resume to step 3
+# phase 16a: in bf16 on random filled weights the gradient moves ~2e-2 (relative
+# L2) under any rounding change: the plain attention's stands 1.862e-2 from the
+# kernels' in one process, and tp = 2 2.202e-2 from one process (this phase;
+# NVIDIA H100 80GB HBM3, 700.00 W), where in fp32 it stands 4.0e-6. So in bf16
+# tp = 2 may stand 1.5x as far from one process as the plain attention does;
+# in fp32 it is held to DP_GRAD_TOL.
+TP_ROUTE_RATIO = 1.5
+
+
+def tp_rank(rank, world, store, work):
+    """One of phase 16a's ranks (a fresh process on the card, gloo, tp = 2,
+    dp = 1, remat on): ``run_training`` to step 1 and a checkpoint, the
+    step's gradient gathered from the shards, then a fresh full-width model
+    that the loop cuts again, resumes from that checkpoint and trains to
+    step TP_STEPS; then the first step of the fp32 model, cut alike.
+    Writes the two gradients to ``<work>/tp-grad-<rank>.pt`` and
+    ``<work>/tp32-grad-<rank>.pt`` and prints one JSON line."""
+    import torch.distributed as dist
+
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.ops import attention as ops
+    from causaldiffae_torch.parallel.collectives import TP_ALL_REDUCES
+    from causaldiffae_torch.parallel.partition import (gather_state_dict, shard_model_,
+                                                       unet_shard_plan)
+    from causaldiffae_torch.training import create_train_state, make_train_step, run_training
+    from causaldiffae_torch.training.loop import to_device
+    from causaldiffae_torch.utils import determinism
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent process runs
+    torch.backends.cudnn.allow_tf32 = False
+    determinism.pin()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    cfg = get_config("morphomnist_causaldae").replace(model_parallel=2, use_remat=True,
+                                                      save_interval=2)
+    with np.load(os.path.join(work, "tp-batch.npz")) as z:
+        batch = {k: z[k] for k in z.files}
+    ckpt = os.path.join(work, "tp-ckpt")
+    diffusion = create_diffusion(cfg)
+    reset_counts(ops)  # the main path's count
+    TP_ALL_REDUCES.update(dict.fromkeys(TP_ALL_REDUCES, 0))
+    model = dp_model(cfg)
+    t0 = time.perf_counter()
+    _, first = run_training(cfg, model, diffusion, iter([batch] * 2), total_steps=1,
+                            log_interval=1, device="cuda", ckpt_dir=ckpt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    plan = model.shard_plan
+    grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, plan)
+    torch.save(torch.cat([grads[n].float().reshape(-1).cpu() for n in grads]),
+               os.path.join(work, f"tp-grad-{rank}.pt"))
+    del model, grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyncedStamps(iter([batch] * (TP_STEPS + 1)))
+    state, records = run_training(cfg, dp_model(cfg), diffusion, data, total_steps=TP_STEPS,
+                                  log_interval=1, device="cuda", ckpt_dir=ckpt)
+    launches = counts(ops)
+    check_records(f"tp rank {rank}", first + records, range(1, TP_STEPS + 1))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_reduces = dict(TP_ALL_REDUCES)
+    del state
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(use_bf16=False)
+    model = dp_model(cfg32)
+    shard_model_(model, unet_shard_plan(model, 2))
+    state32 = create_train_state(cfg32, model)
+    make_train_step(cfg32, model, diffusion, state32.optimizer)(state32,
+                                                                to_device(batch, "cuda"))
+    grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, plan)
+    torch.save(torch.cat([grads[n].float().reshape(-1).cpu() for n in grads]),
+               os.path.join(work, f"tp32-grad-{rank}.pt"))
+    print(json.dumps({
+        "rank": rank, "blocks": len(plan.blocks), "leaves": len(plan.leaves),
+        "first_step_s": first_s, "resumed_at": records[0]["step"] - 1,
+        "step_ms": [1e3 * (b - a) for a, b in zip(data.stamps, data.stamps[1:])],
+        "launches": launches, "all_reduces": all_reduces, "peak_gb": peak_gb,
+        "loss": [r["loss"] for r in first + records],
+        "params": sum(p.numel() for p in model.parameters())}), flush=True)
+    dist.destroy_process_group()
+
+
+def route_gradient(cfg, batch, route=None):
+    """The first train step's gradient (fp64, flat, named_parameters' order)
+    of one process at the preset's batch on phase 16's weights, with the
+    attention through ``route`` when given."""
+    from causaldiffae_torch.config import create_diffusion
+    from causaldiffae_torch.training import create_train_state, make_train_step
+    from causaldiffae_torch.training.loop import to_device
+
+    state = create_train_state(cfg, dp_model(cfg))
+    step = make_train_step(cfg, state.model, create_diffusion(cfg), state.optimizer)
+    with route_attention(route) if route else contextlib.nullcontext():
+        step(state, to_device(batch, "cuda"))
+    grads = flat_grads(state.model).double()
+    del state, step
+    torch.cuda.empty_cache()
+    return grads
+
+
+def tensor_parallel_phase(ops, work, card_line):
+    """Phase 16a: tensor parallelism at full width, two gloo ranks on the one
+    card (tp = 2, dp = 1; NCCL takes one rank per device), remat on. The
+    first step's gradient, gathered from the shards and bit-equal on both
+    ranks, against one process's on the same weights and draws: with the
+    kernels in bf16, no farther from the gradient with fp64 attention than
+    1.5x the plain attention's, and no farther from one process's than 1.5x
+    the plain attention's gradient stands from the kernels' in one process
+    (TP_ROUTE_RATIO); in fp32 (plain attention), within DP_GRAD_TOL of one
+    process's. The tp = 2 checkpoint against a one-process run's: the same
+    keys and shapes, the params within DP_GRAD_TOL. Launches, all-reduces,
+    peak memory and step time per rank. Returns rank 0's launches in its
+    run (forward, with lse, backward)."""
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.data import batch_iterator, synthetic_dataset
+    from causaldiffae_torch.training import CheckpointManager, run_training
+    from causaldiffae_torch.utils.determinism import tensors
+
+    cfg = get_config("morphomnist_causaldae")
+    pool = synthetic_dataset(cfg.dataset, POOL, seed=SEED, image_size=cfg.image_size)
+    batch = next(batch_iterator(pool, cfg.batch_size, seed=SEED + 1))
+    np.savez(os.path.join(work, "tp-batch.npz"), **batch)
+    t0 = time.perf_counter()
+    want = route_gradient(cfg, batch)
+    plain = route_gradient(cfg, batch, PlainAttention.apply)
+    exact = route_gradient(cfg, batch, lambda qkv, heads: exact_attention(ops, qkv, heads)[0]
+                           .to(qkv.dtype))
+    want32 = route_gradient(cfg.replace(use_bf16=False), batch)
+    one_ckpt = os.path.join(work, "tp1-ckpt")
+    run_training(cfg, dp_model(cfg), create_diffusion(cfg), iter([batch] * (TP_STEPS + 1)),
+                 total_steps=TP_STEPS, log_interval=1, device="cuda", ckpt_dir=one_ckpt)
+    refs_s = time.perf_counter() - t0
+
+    store = os.path.join(work, "tp-store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke\nchip_smoke.tp_rank({r}, 2, {store!r}, "
+                               f"{work!r})\n"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"tensor-parallel rank {r} exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    reps = [json.loads(next(line for line in out.splitlines() if line.startswith('{"rank"')))
+            for out in outs]
+    got, got32 = ([torch.load(os.path.join(work, f"{tag}-grad-{r}.pt")).double()
+                   for r in range(2)] for tag in ("tp", "tp32"))
+    if not (torch.equal(got[0], got[1]) and torch.equal(got32[0], got32[1])):
+        raise AssertionError("the two TP ranks hold different gradients (gathered)")
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    dist_rel, routes_rel, dist32 = rel(got[0], want), rel(plain, want), rel(got32[0], want32)
+    d_tp, d_one, d_plain = rms(got[0] - exact), rms(want - exact), rms(plain - exact)
+    saved = CheckpointManager(os.path.join(work, "tp-ckpt")).load(TP_STEPS)
+    one = CheckpointManager(one_ckpt).load(TP_STEPS)
+    shapes = [{p: tuple(v.shape) for p, v in tensors(s)} for s in (saved, one)]
+    flat = lambda s: torch.cat([v.double().reshape(-1) for v in s["model"].values()])  # noqa
+    ckpt_rel = float((flat(saved) - flat(one)).norm() / flat(one).norm())
+    per_step = [{k: v / TP_STEPS for k, v in rep["all_reduces"].items()} for rep in reps]
+    launches = [[n // TP_STEPS for n in rep["launches"]] for rep in reps]
+    print(f"{card_line}: tensor parallel, tp = 2 on 2 gloo ranks on one card, "
+          f"{cfg.name} at batch {cfg.batch_size}, remat on; {reps[0]['blocks']} ResBlocks "
+          f"sharded ({reps[0]['leaves']} parameters), {reps[0]['params']} parameters per rank; "
+          f"first step's gradient: relative L2 from one process's {dist_rel:.3e} (limit "
+          f"{TP_ROUTE_RATIO} x {routes_rel:.3e}, the plain attention's from the kernels' in one "
+          f"process: ratio {dist_rel / routes_rel:.3f}), in fp32 {dist32:.3e} (limit "
+          f"{DP_GRAD_TOL}); rms distance from the gradient with fp64 attention: tp {d_tp:.4e}, "
+          f"one process with the kernels {d_one:.4e}, plain attention {d_plain:.4e} (tp / plain "
+          f"{d_tp / d_plain:.3f}, limit 1.5); gradients bit-equal on the ranks; checkpoint at "
+          f"step {TP_STEPS} (resumed at step {reps[0]['resumed_at']}): {len(shapes[0])} tensors, "
+          f"keys and shapes {'equal' if shapes[0] == shapes[1] else 'DIFFERENT'} to one "
+          f"process's, params relative L2 {ckpt_rel:.3e}; per rank per step: launches "
+          f"(forward, with lse, backward) {launches}, TP all-reduces {per_step}; wall ms per "
+          f"step (steps 2-{TP_STEPS}, host clock between device syncs, two processes sharing "
+          f"the card) {[[round(x, 1) for x in rep['step_ms']] for rep in reps]}; first step "
+          f"with start-up {[round(rep['first_step_s'], 2) for rep in reps]} s; peak memory "
+          f"{[round(rep['peak_gb'], 3) for rep in reps]} GB; loss "
+          f"{[round(x, 5) for x in reps[0]['loss']]}; {seconds:.1f} s for the ranks, "
+          f"{refs_s:.1f} s for the one-process references", flush=True)
+    if not dist_rel <= TP_ROUTE_RATIO * routes_rel or d_tp > 1.5 * d_plain \
+            or not dist32 <= DP_GRAD_TOL:
+        raise AssertionError("the tensor-parallel gradient stands too far from one process's")
+    if shapes[0] != shapes[1] or not ckpt_rel <= DP_GRAD_TOL:
+        raise AssertionError("the tp = 2 checkpoint is not a one-process checkpoint")
+    n = ATTN_PER_CALL[cfg.name]
+    if any(lc != [n, n, n] for lc in launches) or reps[0]["blocks"] != 23 \
+            or any(rep["resumed_at"] != 1 for rep in reps):
+        raise AssertionError(f"tensor parallel: launches per step {launches} (expected {n} of "
+                             f"each), {reps[0]['blocks']} sharded blocks (expected 23)")
+    for r, tag in itertools.product(range(2), ("tp", "tp32")):
+        os.remove(os.path.join(work, f"{tag}-grad-{r}.pt"))
+    shutil.rmtree(os.path.join(work, "tp-ckpt"))
+    shutil.rmtree(one_ckpt)
+    return reps[0]["launches"]
+
+
+def remat_phase(work, card_line):
+    """Phase 16b: the flagship at the preset's batch with and without
+    ``use_remat``: the first step on a fresh state from phase 16's weights,
+    each side's loss and gradients the same (bit for bit under
+    ``determinism.pin``, else within DP_GRAD_TOL) and its peak memory; then
+    the device time per step (``step_device_ms``) in turns (off, on, on,
+    off)."""
+    from causaldiffae_torch.config import create_diffusion, get_config
+    from causaldiffae_torch.training import create_train_state, make_train_step
+    from causaldiffae_torch.training.loop import to_device
+    from causaldiffae_torch.utils import determinism
+
+    determinism.pin()
+    base = get_config("morphomnist_causaldae")
+    with np.load(os.path.join(work, "tp-batch.npz")) as z:
+        batch = to_device({k: z[k] for k in z.files}, "cuda")
+
+    def first_step(remat):
+        cfg = base.replace(use_remat=remat)
+        state = create_train_state(cfg, dp_model(cfg))
+        step = make_train_step(cfg, state.model, create_diffusion(cfg), state.optimizer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(step(state, batch)["loss"])
+        out = loss, flat_grads(state.model), torch.cuda.max_memory_allocated() / 1e9
+        del state, step
+        torch.cuda.empty_cache()
+        return out
+
+    (loss_off, g_off, peak_off), (loss_on, g_on, peak_on) = first_step(False), first_step(True)
+    same = torch.equal(g_off, g_on) and loss_off == loss_on
+    rel = float((g_on.double() - g_off.double()).norm() / g_off.double().norm())
+    device = {False: [], True: []}
+    for remat in (False, True, True, False):
+        device[remat].append(step_device_ms(base.replace(use_remat=remat), steps=3)[0])
+    print(f"{card_line}: remat, {base.name} at batch {base.batch_size}: first step's loss and "
+          f"gradients {'bit-equal' if same else 'DIFFER'} with and without it (relative L2 "
+          f"{rel:.3e}; loss {loss_off!r} / {loss_on!r}); peak device memory of the first "
+          f"step without {peak_off:.3f} GB, with {peak_on:.3f} GB; device ms per step "
+          f"(torch.profiler's kernel sum over 3 steps, in turns off, on, on, off) without "
+          f"{[round(x, 2) for x in device[False]]}, with {[round(x, 2) for x in device[True]]}",
+          flush=True)
+    if not rel <= DP_GRAD_TOL:
+        raise AssertionError(f"remat moved the gradient by {rel:.3e} (relative L2)")
+
+
 ARTIFACT_BATCH = 16
 ARTIFACT_REQUESTS = 48   # 3 batches of 16 per serving route
 DDIM_STEPS = 250         # morphomnist's eval respacing: UNet calls per DDIM chain
@@ -2109,7 +2382,7 @@ def main():
                                             os.path.join(work, "pendulum"), steps=(2, 4),
                                             save_interval=2, sampler="dpm++", sample_steps=25,
                                             intervene_var=2)
-        # phases 12-13b (timed) run before phase 14's exports start, 8b-11 beside them
+        # phases 12-16 (timed) run before phase 14's exports start, 8b-11 beside them
         phase("12. morphomnist_causaldae with the flow prior and dropout at full width")
         flow = flow_dropout_phase(ops, gen, work)
         phase("13a. the train CLI under torchrun at world size 1 against the plain CLI")
@@ -2117,6 +2390,11 @@ def main():
         phase("13b. data parallelism: two gloo ranks on the card against one process")
         torch.cuda.empty_cache()
         dp = data_parallel_phase(ops, work, morpho_ckpt)
+        phase("16a. tensor parallelism: tp = 2 on two gloo ranks on the card, remat on")
+        torch.cuda.empty_cache()
+        tp = tensor_parallel_phase(ops, work, card_line)
+        phase("16b. remat: one step with and without use_remat, in turns")
+        remat_phase(work, card_line)
         exporters.append(start_exports(work, "morphomnist", [
             ("ddim", morpho_ckpt, ["--intervene_var", "0", "--aot"])]))
         exporters.append(start_exports(work, "filled-and-pendulum", [
@@ -2176,14 +2454,15 @@ def main():
                 "evaluation_pendulum": evaluation_pendulum,
                 "training_flow_dropout": flow["attention_fwd"],
                 "training_dp_rank0": dp["training_dp"][0],
-                "evaluation_dp_rank0": dp["evaluation_dp"][0], **artifacts}),
+                "evaluation_dp_rank0": dp["evaluation_dp"][0], "training_tp_rank0": tp[0],
+                **artifacts}),
         record("attention_bwd", "causaldiffae_tpu/ops/attention_pallas.py:184 "
                "(_attn_bwd_kernel) and :308 (_attn_bwd_kernel_t)", bwd_recs,
                {"training": train_launches["attention_bwd"],
                 "training_circuit": circuit["training"][2],
                 "training_pendulum": pendulum["training"][2],
                 "training_flow_dropout": flow["attention_bwd"],
-                "training_dp_rank0": dp["training_dp"][2]}),
+                "training_dp_rank0": dp["training_dp"][2], "training_tp_rank0": tp[2]}),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)

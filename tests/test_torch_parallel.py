@@ -197,7 +197,7 @@ def _worker(rank, world, store, out):
         if name == "per_rank_bn":  # each rank's own statistics, as nn.BatchNorm2d would take
             encoder.GaussianConvEncoder.stats_over_ranks = False
         if name == "per_rank_kl":  # each rank's own sum(kld * mask) / sum(mask)
-            process.sum_across_ranks = lambda x: x
+            process.sum_across_ranks = lambda x, group=None: x
         try:
             np.savez(out / f"{name}_{rank}.npz", **run_case(name, rank, world))
         finally:
