@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .utils import tracing
+
 NUM_CLASSES = 10  # script_util.py:9
 
 # Causal graphs (row=cause -> col=effect).
@@ -159,6 +161,7 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+@tracing.traced("cdae.setup.create_model")
 def create_model(cfg: Config, device="cuda"):
     """Build the CausalUNet from a Config, in eval mode on ``device``.
 

@@ -24,7 +24,9 @@ cannot compile ``scan`` (its C++ wrapper fails an assertion in
 nothing), and an exported ``scan`` run eagerly calls its body once more
 than its length. Both forms run the same step function, so they
 compute the same thing; the schedule lookups gather by the step's timestep
-broadcast to ``[B]``, never by a 0-d loop counter.
+broadcast to ``[B]``, never by a 0-d loop counter. Each step of the eager
+loop runs in the span ``cdae.chain.step`` (``utils/tracing.py``); the
+traceable form holds none.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .process import GaussianDiffusion
 
 __all__ = [
@@ -57,7 +60,8 @@ def _run(diffusion: GaussianDiffusion, step, carry, xs, traceable: bool):
     n = xs[0].shape[0]
     if not traceable:
         for i in range(n):
-            carry = step(carry, tuple(x[i] for x in xs))
+            with tracing.span("cdae.chain.step"):
+                carry = step(carry, tuple(x[i] for x in xs))
         return carry
     from torch._higher_order_ops import while_loop
 

@@ -21,6 +21,11 @@ images' device). The functions run under ``torch.inference_mode``; with
 ``traceable=True`` they run the chains' traceable form instead, without
 that mode, for ``torch.export`` (``serving.py``), and then take every draw
 as an argument (DDPM's ``step_noise`` ``[N, B, ...]`` too).
+
+A counterfactual function's call runs in the span ``cdae.cf.request``, with
+the children ``cdae.cf.prepare`` (encode, do(), SCM, q_sample) and
+``cdae.cf.chain`` (each chain it runs); building one runs in
+``cdae.setup.chain`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from ..diffusion.process import GaussianDiffusion
 from ..diffusion.sampling import ddim_reverse_loop, ddim_sample_loop, dpm_solver_pp_loop, p_sample_loop
 from ..models.unet import CausalUNet
+from ..utils import tracing
 
 __all__ = ["make_counterfactual_fn", "make_reconstruct_fn", "make_prior_sample_fn",
            "resolve_sampler"]
@@ -85,6 +91,7 @@ def _denoiser(model: CausalUNet, y, c, z):
     return model_fn
 
 
+@tracing.traced("cdae.setup.chain")
 def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion, *,
                            intervene_var: int, where: str = "auto", use_ddim: bool = True,
                            w: Optional[float] = None, abduction: str = "qsample",
@@ -112,39 +119,42 @@ def make_counterfactual_fn(cfg, model: CausalUNet, diffusion: GaussianDiffusion,
     if where not in ("pre", "post"):
         raise ValueError(f"where must be 'auto', 'pre' or 'post', got {where!r}")
 
+    @tracing.traced("cdae.cf.request")
     def fn(x, cond: Dict[str, torch.Tensor], value, generator=None, *,
            abduction_noise=None, rep_noise=None, step_noise=None):
         B = x.shape[0]
-        mu_raw, _ = model.encode(x)
-        var = torch.full_like(mu_raw, cfg.reparam_var_scale)
-        if rep_noise is None:
-            rep_noise = _randn(mu_raw.shape, mu_raw, generator)
-
-        def make_z(intervene: bool) -> torch.Tensor:
-            mu = mu_raw
-            if intervene and where == "pre":
-                mu = _overwrite_block(mu, intervene_var, n_vars, value)
-            z_post = model.causalize(mu) if cfg.causal_modeling else mu
-            if intervene and where == "post":
-                z_post = _overwrite_block(z_post, intervene_var, n_vars, value)
-            return z_post + torch.sqrt(var) * rep_noise
-
         y, c = cond.get("y"), cond.get("c")
-        z = make_z(True)
-        model_fn = _denoiser(model, y, c, z)
-        uncond_fn = _denoiser(model, y, c, torch.zeros_like(z)) if w is not None else None
+        with tracing.span("cdae.cf.prepare"):
+            mu_raw, _ = model.encode(x)
+            var = torch.full_like(mu_raw, cfg.reparam_var_scale)
+            if rep_noise is None:
+                rep_noise = _randn(mu_raw.shape, mu_raw, generator)
 
-        if abduction == "qsample":
-            t = torch.full((B,), cfg.abduction_t, dtype=torch.long, device=x.device)
-            if abduction_noise is None:
-                abduction_noise = _randn(x.shape, x, generator)
-            x_t = diffusion.q_sample(x, t, abduction_noise)
-        else:
-            x_t = ddim_reverse_loop(diffusion, _denoiser(model, y, c, make_z(False)), x,
-                                    clip_denoised=cfg.clip_denoised, w=w, uncond_fn=uncond_fn,
-                                    traceable=traceable)
-        return loop(diffusion, model_fn, x_t, generator, clip_denoised=cfg.clip_denoised, w=w,
-                    uncond_fn=uncond_fn, **_chain_kwargs(traceable, step_noise))
+            def make_z(intervene: bool) -> torch.Tensor:
+                mu = mu_raw
+                if intervene and where == "pre":
+                    mu = _overwrite_block(mu, intervene_var, n_vars, value)
+                z_post = model.causalize(mu) if cfg.causal_modeling else mu
+                if intervene and where == "post":
+                    z_post = _overwrite_block(z_post, intervene_var, n_vars, value)
+                return z_post + torch.sqrt(var) * rep_noise
+
+            z = make_z(True)
+            model_fn = _denoiser(model, y, c, z)
+            uncond_fn = _denoiser(model, y, c, torch.zeros_like(z)) if w is not None else None
+            if abduction == "qsample":
+                t = torch.full((B,), cfg.abduction_t, dtype=torch.long, device=x.device)
+                if abduction_noise is None:
+                    abduction_noise = _randn(x.shape, x, generator)
+                x_t = diffusion.q_sample(x, t, abduction_noise)
+        if abduction == "ddim":
+            with tracing.span("cdae.cf.chain"):
+                x_t = ddim_reverse_loop(diffusion, _denoiser(model, y, c, make_z(False)), x,
+                                        clip_denoised=cfg.clip_denoised, w=w,
+                                        uncond_fn=uncond_fn, traceable=traceable)
+        with tracing.span("cdae.cf.chain"):
+            return loop(diffusion, model_fn, x_t, generator, clip_denoised=cfg.clip_denoised,
+                        w=w, uncond_fn=uncond_fn, **_chain_kwargs(traceable, step_noise))
 
     return _finish(fn, traceable)
 

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.collectives import sum_across_ranks
 from ..parallel.grid import dp_group, dp_size
+from ..utils import tracing
 from .attention import AttentionBlock
 from .encoder import GaussianConvEncoder
 from .layers import Downsample, GroupNorm32, ResBlock, Upsample, conv, conv3x3, silu, timestep_embedding
@@ -188,20 +189,23 @@ class CausalUNet(nn.Module):
         """eps prediction given explicit conditioning; x and eps are NHWC.
 
         In train mode with dropout, ``drop(shape)`` gives each ResBlock's
-        keep mask, in the order the blocks run (``layers.ResBlock``)."""
-        emb = self._embed(t, y, c, z).to(self.dtype)
-        h = _nchw(x).to(self.dtype)
-        hs = []
-        for blocks in self.input_blocks:
-            h = self._apply_seq(blocks, h, emb, drop)
-            hs.append(h)
-        h = self._apply_seq(self.middle_block, h, emb, drop)
-        for blocks in self.output_blocks:
-            h = torch.cat([h, hs.pop()], dim=1)
-            h = self._apply_seq(blocks, h, emb, drop)
-        h = h.to(x.dtype)
-        h = self.out[0](h, silu_after=True)
-        return _nhwc(conv(self.out[2], h, torch.float32))
+        keep mask, in the order the blocks run (``layers.ResBlock``). Runs in
+        the span ``cdae.unet.denoise`` and counts ``cdae.unet.calls``."""
+        tracing.count("cdae.unet.calls")
+        with tracing.span("cdae.unet.denoise"):
+            emb = self._embed(t, y, c, z).to(self.dtype)
+            h = _nchw(x).to(self.dtype)
+            hs = []
+            for blocks in self.input_blocks:
+                h = self._apply_seq(blocks, h, emb, drop)
+                hs.append(h)
+            h = self._apply_seq(self.middle_block, h, emb, drop)
+            for blocks in self.output_blocks:
+                h = torch.cat([h, hs.pop()], dim=1)
+                h = self._apply_seq(blocks, h, emb, drop)
+            h = h.to(x.dtype)
+            h = self.out[0](h, silu_after=True)
+            return _nhwc(conv(self.out[2], h, torch.float32))
 
     def encode(self, x_start):
         """Semantic encoder q(u | x0) -> (mu, var); x_start is NHWC."""

@@ -31,6 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "causaldiffae_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +58,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+@tracing.traced("cdae.setup.build")
 def build(name: str) -> Tuple[float, str]:
     """Compile ``csrc/<name>.cu`` unless its library is up to date.
 

@@ -21,7 +21,8 @@ part of the math and are not carried over.
 output is ``[B, T, C]``, both in the input dtype. On a CPU tensor each wrapper
 runs its plain version; on a CUDA tensor it launches its kernel or raises.
 ``attention_fwd.launches`` and ``attention_bwd.launches`` count launches,
-``attention_fwd.lse_launches`` those forward launches that wrote lse.
+``attention_fwd.lse_launches`` those forward launches that wrote lse;
+``utils/tracing.py``'s snapshot carries the three under ``cdae.`` names.
 
 The forward without a gradient is also the dispatcher op
 ``torch.ops.causaldiffae.attention_fwd(qkv, num_heads)`` (registered when this
@@ -41,6 +42,7 @@ import math
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 __all__ = ["attention_plain", "attention_fwd", "attention_fwd_op", "prepare_forward",
@@ -335,6 +337,9 @@ def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 
 
 attention_bwd.launches = 0
+tracing.counters_from(lambda: {"cdae.attention_fwd.launches": attention_fwd.launches,
+                               "cdae.attention_fwd.lse_launches": attention_fwd.lse_launches,
+                               "cdae.attention_bwd.launches": attention_bwd.launches})
 
 
 class FusedAttention(torch.autograd.Function):
@@ -359,6 +364,7 @@ class FusedAttention(torch.autograd.Function):
         return attention_bwd(qkv, g.contiguous(), ctx.num_heads, out, lse), None
 
 
+@tracing.traced("cdae.setup.prepare_forward")
 def prepare_forward(device) -> None:
     """Make the no-grad forward ready before the first request: build the
     kernel on a card, and call the op once on a tiny CPU tensor, since the

@@ -9,7 +9,11 @@ and device time per UNet call, the device's busy share (the sum of kernel
 times in the profiled window over the wall time of the same steps run
 without the profiler; one stream, so kernels do not overlap) and the
 kernels that take the most device time. Without device times in the trace
-it says so instead of printing a share.
+it says so instead of printing a share. Beside them, ``spans``: the
+program's own spans (``utils/tracing.py``), self ms per UNet call by span
+over the same steps run without the profiler (``cdae.unet.denoise``); the
+UNet calls, by which every figure is divided, are those its counter
+``cdae.unet.calls`` counted in those steps.
 
 Usage: python -m causaldiffae_torch.profile_serving [--preset circuit_causaldae]
 """
@@ -41,6 +45,7 @@ def main(argv: Optional[List[str]] = None):
     from .config import create_diffusion, create_model, get_config
     from .data import synthetic_dataset
     from .training.loop import to_device
+    from .utils import tracing
     from .utils.weights import fill_normal_
 
     cfg = get_config(args.preset)
@@ -67,38 +72,39 @@ def main(argv: Optional[List[str]] = None):
     with torch.inference_mode():
         chain(3)  # warm-up: cuDNN plans, kernel build
         torch.cuda.synchronize()
+        tracing.reset()
         t0 = time.perf_counter()
         chain(STEPS)
         torch.cuda.synchronize()
         plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        snap = tracing.snapshot()
+        calls = snap["counters"]["cdae.unet.calls"]
+        spans = tracing.span_table(snap, calls)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             chain(STEPS)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
-    from torch.autograd import DeviceType
-
-    # device-side events only: a CPU op's own "device time" repeats its kernels'
-    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = tracing.device_ops(prof)
     device_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda k: -k[1])
     report = {
-        "preset": cfg.name, "batch": B, "unet_calls": STEPS,
+        "preset": cfg.name, "batch": B, "unet_calls": calls,
         "device": torch.cuda.get_device_name(0),
-        "wall_ms_per_unet_call": plain_wall_ms / STEPS,
-        "profiled_wall_ms_per_unet_call": wall_ms / STEPS,
+        "wall_ms_per_unet_call": plain_wall_ms / calls,
+        "profiled_wall_ms_per_unet_call": wall_ms / calls,
+        "spans": spans,
     }
     if device_ms > 0:
         report.update({
-            "device_ms_per_unet_call": device_ms / STEPS,
+            "device_ms_per_unet_call": device_ms / calls,
             "device_busy_share": device_ms / plain_wall_ms,
             "device_busy_share_profiled": device_ms / wall_ms,
-            "kernel_launches_per_unet_call": sum(c for _, _, c in kernels) / STEPS,
-            "top_kernels": [{"name": name[:80], "ms_per_unet_call": us / 1e3 / STEPS,
+            "kernel_launches_per_unet_call": sum(c for _, _, c in kernels) / calls,
+            "top_kernels": [{"name": name[:80], "ms_per_unet_call": us / 1e3 / calls,
                              "share_of_device_time": us / 1e3 / device_ms,
-                             "launches_per_unet_call": c / STEPS}
+                             "launches_per_unet_call": c / calls}
                             for name, us, c in kernels[:TOP]],
         })
     else:

@@ -37,8 +37,14 @@ from the latest checkpoint.
 
 Each record goes to the logger (``logkv_mean``/``dumpkvs``: progress.csv,
 progress.json, log.txt as configured) and, as one JSON line, to stdout. Its
-``wait_data`` is the host time spent drawing batches since the record
-before it.
+``wait_data`` is the host time spent in the feed since the record before it:
+the seconds of the feed's spans.
+
+Spans (``utils/tracing.py``): ``cdae.train.data.next`` (the iterator's
+``next``, the loader), ``cdae.train.data.copy`` (``pin_memory`` and the
+copy's enqueue), ``cdae.train.data.ready``, ``cdae.train.readback`` (the
+metrics' copy started) and ``cdae.train.readback.wait`` (waiting for it at
+the next interval); the step's own are in ``train_step.py``.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..parallel import (dp_group, dp_size, init_grid, is_primary, reduce_metrics,
                         sum_across_ranks, world_size)
 from ..parallel.partition import shard_model_, unet_shard_plan
-from ..utils import logger
+from ..utils import logger, tracing
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .train_step import make_train_step
@@ -82,19 +88,23 @@ class _Feed:
     on a card the copy runs on a side stream, and ``ready`` makes the
     current stream wait for it."""
 
+    SPANS = ("cdae.train.data.next", "cdae.train.data.copy", "cdae.train.data.ready")
+
     def __init__(self, data: Iterator[Dict[str, np.ndarray]], device):
         self.data = data
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def fetch(self) -> Dict[str, torch.Tensor]:
-        with logger.profile_kv("data"):
+        with tracing.span("cdae.train.data.next"):
             batch = next(self.data)
-        if self.stream is None:
-            return to_device(batch, self.device)
-        with torch.cuda.stream(self.stream):
-            return to_device(batch, self.device)
+        with tracing.span("cdae.train.data.copy"):
+            if self.stream is None:
+                return to_device(batch, self.device)
+            with torch.cuda.stream(self.stream):
+                return to_device(batch, self.device)
 
+    @tracing.traced("cdae.train.data.ready")
     def ready(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.stream is not None:
             current = torch.cuda.current_stream(self.device)
@@ -104,6 +114,12 @@ class _Feed:
         return batch
 
 
+def _feed_seconds() -> float:
+    spans = tracing.snapshot()["spans"]
+    return sum(spans[k]["s"] for k in _Feed.SPANS if k in spans)
+
+
+@tracing.traced("cdae.train.readback")
 def _start_readback(metrics: Dict[str, torch.Tensor]):
     """Start copying the metrics to the host; returns (keys, host values, event)."""
     keys = sorted(k for k in metrics if not k.endswith("_count"))
@@ -115,6 +131,13 @@ def _start_readback(metrics: Dict[str, torch.Tensor]):
     done = torch.cuda.Event()
     done.record()
     return keys, host, done
+
+
+def _wait_readback(done: Optional[torch.cuda.Event]) -> None:
+    """Wait for the copy that ``_start_readback`` started (its event)."""
+    if done is not None:
+        with tracing.span("cdae.train.readback.wait"):
+            done.synchronize()
 
 
 def _note(msg: str) -> None:
@@ -180,15 +203,15 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
     stop = []        # the ranks agreed that one of them was signalled
     t_start = last = time.perf_counter()
     last_step = resume_step
+    fed = _feed_seconds()
 
     def log_pending():
-        nonlocal pending, last, last_step
+        nonlocal pending, last, last_step, fed
         if pending is None:
             return
         at_step, stamp, (keys, host, done) = pending
         pending = None
-        if done is not None:
-            done.synchronize()
+        _wait_readback(done)
         for k, v in zip(keys, host.tolist()):
             if k == "signalled":
                 if v > 0:
@@ -200,7 +223,9 @@ def run_training(cfg, model: torch.nn.Module, diffusion, data: Iterator[Dict[str
         logger.logkv("samples_per_sec", (at_step - resume_step) * batch_size
                      / max(stamp - t_start, 1e-9))
         logger.logkv("step_time_s", (stamp - last) / max(at_step - last_step, 1))
-        last, last_step = stamp, at_step
+        now = _feed_seconds()
+        logger.logkv("wait_data", now - fed)
+        last, last_step, fed = stamp, at_step, now
         rec = {**logger.dumpkvs(), "device": str(device)}
         records.append(rec)
         if is_primary():

@@ -17,6 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .samplers import SamplerState, init_sampler_state
 
 __all__ = ["TrainState", "create_train_state", "make_optimizer", "anneal_lr_",
@@ -61,6 +62,7 @@ def ema_rates(cfg) -> List[str]:
     return [r for r in str(cfg.ema_rate).split(",") if r]
 
 
+@tracing.traced("cdae.setup.train_state")
 def create_train_state(cfg, model: torch.nn.Module) -> TrainState:
     """Optimizer, EMA copies equal to the parameters, fresh sampler state."""
     params = list(model.parameters())

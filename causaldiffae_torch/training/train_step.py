@@ -18,10 +18,17 @@ the sharded tensors' squares over the TP group and count the replicated
 ones once, so that every rank holds the same norms and skips a step with
 all the others. The EMA runs on each rank's shard.
 
-The metrics come back as tensors on the device, so a step does not
-synchronise the host; the loop reads them at its log interval. (The
-loss-second-moment sampler, not the presets' default, reads t and the losses
-back every step for its host-side history.)
+The metrics come back as tensors on the device; the loop reads them at its
+log interval. (The loss-second-moment sampler, not the presets' default,
+reads t and the losses back every step for its host-side history.) One copy
+blocks the host each step: ``kl_weight``'s, host to device, which waits for
+the step's device work.
+
+A step runs in the span ``cdae.train.step`` (``utils/tracing.py``), with the
+children ``.forward`` (each microbatch's losses), ``.backward``,
+``.optimizer`` (the gradient norm, ``found_inf`` and AdamW), ``.ema`` and
+``.metrics`` (the metrics' device scalars), and in ``.metrics`` ``.wait``:
+that copy alone.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..diffusion.process import GaussianDiffusion
 from ..parallel import dp_rank, dp_size, rank_rows, tp_group
 from ..parallel.collectives import all_reduce_
+from ..utils import tracing
 from .samplers import sample_timesteps, timestep_weights, update_sampler_state
 from .state import TrainState, anneal_lr_, ema_rates, kl_weight_for_step
 
@@ -131,6 +139,7 @@ def _rank_draws(cfg, draws, gen, micro: int, k: int, mine: slice, image_shape,
     return out
 
 
+@tracing.traced("cdae.setup.train_step")
 def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """Build ``train_step(state, batch, *, draws=None) -> metrics``.
@@ -167,6 +176,7 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                              device=params[0].device)
         sharded = (flags, tp_group())
 
+    @tracing.traced("cdae.train.step")
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         base.train()
@@ -201,10 +211,12 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
                                 device)
             sync = not ddp or lo + share == n
             with contextlib.nullcontext() if sync else model.no_sync():
-                terms = compute_losses(cfg, model, diffusion, images[sl],
-                                       {k: v[sl] for k, v in cond.items()}, t[sl], kl_weight,
-                                       generator=gen, **drawn)
-                (terms["loss"] * weights[sl]).mean().backward()
+                with tracing.span("cdae.train.step.forward"):
+                    terms = compute_losses(cfg, model, diffusion, images[sl],
+                                           {k: v[sl] for k, v in cond.items()}, t[sl], kl_weight,
+                                           generator=gen, **drawn)
+                with tracing.span("cdae.train.step.backward"):
+                    (terms["loss"] * weights[sl]).mean().backward()
             parts.append({k: v.detach() for k, v in terms.items()})
         terms = {k: (torch.cat([p[k].reshape(-1) for p in parts]) if parts[0][k].ndim
                      else torch.stack([p[k] for p in parts]).mean()) for k in parts[0]}
@@ -212,46 +224,49 @@ def make_train_step(cfg, model: torch.nn.Module, diffusion: GaussianDiffusion,
         loss_vec = terms["loss"].expand(n)
         state.sampler_state = update_sampler_state(state.sampler_state, t, loss_vec,
                                                    rank_rows(B, W, r, micro))
-        for p in params:  # as jax.grad, every parameter has a gradient (zeros if unused)
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grad_norm = global_norm([p.grad for p in params], sharded)
-        nonfinite = (~torch.isfinite(grad_norm)).float()
-        optimizer.found_inf = nonfinite if cfg.skip_nonfinite else None
-        anneal_lr_(optimizer, cfg)
-        optimizer.step()  # with found_inf = 1 the fused step leaves params, moments, step
+        with tracing.span("cdae.train.step.optimizer"):
+            for p in params:  # as jax.grad, every parameter has a gradient (zeros if unused)
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grad_norm = global_norm([p.grad for p in params], sharded)
+            nonfinite = (~torch.isfinite(grad_norm)).float()
+            optimizer.found_inf = nonfinite if cfg.skip_nonfinite else None
+            anneal_lr_(optimizer, cfg)
+            optimizer.step()  # with found_inf = 1 the fused step leaves params, moments, step
 
-        with torch.no_grad():
+        with tracing.span("cdae.train.step.ema"), torch.no_grad():
             for rate_str, rate in rates:
                 ema = [state.ema[rate_str][n] for n, _ in named]
                 torch._foreach_mul_(ema, rate)
                 torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - rate)
 
-        metrics = {
-            "loss": (loss_vec * weights).mean(),
-            "grad_norm": grad_norm,
-            "param_norm": global_norm([p.detach() for p in params], sharded),
-            "kl_weight": torch.tensor(kl_weight, dtype=torch.float32, device=device),
-        }
-        if "mse" in terms:
-            metrics["mse"] = (terms["mse"] * weights).mean()
-        if cfg.skip_nonfinite:
-            metrics["step_skipped"] = nonfinite
-        if "kld_rep" in terms:
-            metrics["kld_rep"] = terms["kld_rep"].mean()
-        if "vb" in terms:
-            metrics["vb"] = (terms["vb"] * weights).mean()
-        if state.sampler_state is not None:
-            counts = state.sampler_state["counts"]
-            size = state.sampler_state["history"].shape[1]
-            metrics["sampler_warmed"] = torch.tensor(float((counts == size).all()), device=device)
-            metrics["sampler_warmup_frac"] = torch.tensor(float((counts / size).mean()),
-                                                          device=device)
-        for key in ("loss", "mse"):
-            if key in terms:
-                vals = terms[key].expand(n) * weights
-                for name, v in _quartile_means(t, vals, num_t).items():
-                    metrics[f"{key}_{name}"] = v
+        with tracing.span("cdae.train.step.metrics"):
+            loss = (loss_vec * weights).mean()
+            param_norm = global_norm([p.detach() for p in params], sharded)
+            with tracing.span("cdae.train.step.wait"):   # blocks until the device drains
+                kl = torch.tensor(kl_weight, dtype=torch.float32, device=device)
+            metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm,
+                       "kl_weight": kl}
+            if "mse" in terms:
+                metrics["mse"] = (terms["mse"] * weights).mean()
+            if cfg.skip_nonfinite:
+                metrics["step_skipped"] = nonfinite
+            if "kld_rep" in terms:
+                metrics["kld_rep"] = terms["kld_rep"].mean()
+            if "vb" in terms:
+                metrics["vb"] = (terms["vb"] * weights).mean()
+            if state.sampler_state is not None:
+                counts = state.sampler_state["counts"]
+                size = state.sampler_state["history"].shape[1]
+                metrics["sampler_warmed"] = torch.tensor(float((counts == size).all()),
+                                                         device=device)
+                metrics["sampler_warmup_frac"] = torch.tensor(float((counts / size).mean()),
+                                                              device=device)
+            for key in ("loss", "mse"):
+                if key in terms:
+                    vals = terms[key].expand(n) * weights
+                    for name, v in _quartile_means(t, vals, num_t).items():
+                        metrics[f"{key}_{name}"] = v
         state.step += 1
         return metrics
 

@@ -269,11 +269,12 @@ def log(*args):
 
 @contextlib.contextmanager
 def profile_kv(scopename: str):
-    """Accumulate wall time under wait_<scope> (reference `logger.py:294-311`)."""
+    """Accumulate wall time under wait_<scope> (reference `logger.py:294-311`),
+    on the monotonic ``perf_counter`` clock."""
     logkey = "wait_" + scopename
-    tstart = time.time()
+    tstart = time.perf_counter()
     try:
         yield
     finally:
-        get_current().name2val[logkey] += time.time() - tstart
+        get_current().name2val[logkey] += time.perf_counter() - tstart
 
