@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..config import get_config
-from ..ops.attention import prepare_forward
+from ..ops import prepare
 from ..parallel import init_from_env
 from ..utils import determinism, logger
 
@@ -43,8 +43,8 @@ def restore_model(preset, ckpt_dir, use_ema: bool, seed: int, device: str):
     """(config, model, step) in eval mode on ``device``: the latest checkpoint
     in ``ckpt_dir`` with the config it was trained with (``preset``, when
     given, must match it), else ``preset`` (default morphomnist_causaldae)
-    with weights made from ``seed`` and step None. The attention forward is
-    made ready here (built on the card), before the first UNet call."""
+    with weights made from ``seed`` and step None. The configuration's
+    kernels are made ready here (``ops.prepare``), before the first UNet call."""
     from ..serve import build_model, load_checkpoint
 
     if ckpt_dir:
@@ -57,6 +57,5 @@ def restore_model(preset, ckpt_dir, use_ema: bool, seed: int, device: str):
     else:
         cfg, step = get_config(preset or "morphomnist_causaldae"), None
         model = build_model(cfg, "", seed, device)
-    if cfg.use_kernels and cfg.use_bf16:
-        prepare_forward(device)
+    prepare(device, cfg.use_kernels, cfg.use_bf16)
     return cfg, model, step

@@ -10,10 +10,11 @@ The artifact answers without this package's model code:
     fn, manifest = causaldiffae_torch.serving.load_artifact(path)
     images = fn(x, y, value, seed)          # per manifest['inputs']
 
-The attention blocks call the op ``torch.ops.causaldiffae.attention_fwd``,
-so the hand-written kernel runs inside the artifact, under ``--poly_batch``
-too (the kernel takes the batch at launch); ``--use_kernels false`` traces
-the plain attention instead, and the manifest's ``attention`` says which.
+The attention blocks call the op ``torch.ops.causaldiffae.attention_fwd``
+and the norms ``torch.ops.causaldiffae.norm_act_fwd``, so the hand-written
+kernels run inside the artifact, under ``--poly_batch`` too (the kernels take
+the batch at launch); ``--use_kernels false`` traces the plain attention and
+norms instead, and the manifest's ``attention`` says which.
 ``--verify`` reloads the artifact (and the package) and holds it against
 the direct call on the same inputs and draws, within an atol that grows
 with the chain (2e-5 per UNet evaluation, the JAX package's rule; wrong
@@ -42,6 +43,7 @@ from .config import create_diffusion
 from .evals import make_counterfactual_fn, make_prior_sample_fn, make_reconstruct_fn
 from .evals.cli import restore_model
 from .models.attention import AttentionBlock
+from .models.layers import GroupNorm32
 from .serve import str2bool
 
 __all__ = ["build_serving_fn", "main"]
@@ -153,7 +155,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--use_ema", type=str2bool, default=False,
                    help="the config's first EMA rate's weights (default: the raw ones)")
     p.add_argument("--use_kernels", type=str2bool, default=None,
-                   help="override the checkpoint's config (false: the plain attention)")
+                   help="override the checkpoint's config (false: the plain attention "
+                        "and norms)")
     p.add_argument("--verify", type=str2bool, default=True,
                    help="reload the artifact and hold it against the direct call")
     p.add_argument("--verify_atol", type=float, default=None,
@@ -180,7 +183,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.use_kernels is not None:
         cfg = cfg.replace(use_kernels=args.use_kernels)
         for blk in model.modules():
-            if isinstance(blk, AttentionBlock):
+            if isinstance(blk, (AttentionBlock, GroupNorm32)):
                 blk.use_kernels = args.use_kernels
     model.requires_grad_(False)   # else the trace records autograd through the loop
     diffusion = create_diffusion(cfg, eval_mode=True)

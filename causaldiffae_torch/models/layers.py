@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.norm_act import group_norm_act
 from ..parallel.collectives import copy_to_group, reduce_from_group
 
 
@@ -65,30 +66,23 @@ class GroupNorm32(nn.GroupNorm):
     var = E[x^2] - E[x]^2, eps 1e-5, affine in fp32, then a cast back to the
     input dtype BEFORE the optional scale-shift ``y * (1 + scale) + shift``
     and SiLU, which run in the input dtype.
+
+    The whole chain is one call of ``ops.norm_act.group_norm_act``: with
+    ``use_kernels`` (set by the model, as on its attention blocks) the
+    hand-written kernel pair (``csrc/norm_act.cu``) on a card, in any dtype,
+    and one ``causaldiffae::norm_act_fwd`` node in a traced forward; the
+    eager chain on the CPU, and everywhere without ``use_kernels``.
     """
+
+    use_kernels = True
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__(num_groups, channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor, scale_shift=None, silu_after: bool = False):
-        orig_dtype = x.dtype
-        B, C = x.shape[:2]
-        G = self.num_groups
-        x32 = x.float().reshape(B, G, -1)
-        mean = x32.mean(dim=-1, keepdim=True)
-        msq = (x32 * x32).mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(msq - mean * mean + self.eps)
-        y = ((x32 - mean) * inv).reshape(x.shape)
-        bshape = (1, C) + (1,) * (x.ndim - 2)
-        y = y * self.weight.reshape(bshape) + self.bias.reshape(bshape)
-        y = y.to(orig_dtype)
-        if scale_shift is not None:
-            scale, shift = scale_shift
-            cshape = (B, C) + (1,) * (x.ndim - 2)
-            y = y * (1 + scale.to(orig_dtype).reshape(cshape)) + shift.to(orig_dtype).reshape(cshape)
-        if silu_after:
-            y = y * torch.sigmoid(y)
-        return y
+        scale, shift = (None, None) if scale_shift is None else scale_shift
+        return group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, scale, shift,
+                              silu_after, self.use_kernels)
 
 
 class Upsample(nn.Module):

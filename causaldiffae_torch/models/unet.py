@@ -148,6 +148,9 @@ class CausalUNet(nn.Module):
 
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  conv3x3(model_channels, out_channels, zero_init=True))
+        for m in self.modules():
+            if isinstance(m, GroupNorm32):
+                m.use_kernels = use_kernels
 
     # ------------------------------------------------------------------ #
     def _apply_seq(self, modules, h, emb, drop):

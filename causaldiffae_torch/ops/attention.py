@@ -369,9 +369,12 @@ def prepare_forward(device) -> None:
     """Make the no-grad forward ready before the first request: build the
     kernel on a card, and call the op once on a tiny CPU tensor, since the
     first call of a ``torch.library`` op in a process imports its machinery,
-    which takes seconds."""
+    which takes seconds. The norm kernels (``csrc/norm_act.cu``) are built
+    here too, because the benchmark's serving generator readies a model by
+    this call alone; the program's entry points call ``ops.prepare``."""
     if str(device).startswith("cuda"):
         _build.build("attention_fwd")
+        _build.build("norm_act")
     torch.ops.causaldiffae.attention_fwd(torch.zeros(1, 1, 96, dtype=torch.bfloat16), 1)
 
 

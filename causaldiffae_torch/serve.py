@@ -39,7 +39,7 @@ import torch
 from .config import DATA_SCALES, Config, create_diffusion, create_model, get_config
 from .data import synthetic_dataset
 from .evals.counterfactual import make_counterfactual_fn, resolve_sampler
-from .ops.attention import prepare_forward
+from .ops import prepare
 from .training.checkpoint import CheckpointManager
 from .training.state import ema_rates
 from .utils.weights import load_weights
@@ -240,8 +240,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     n_vars = cfg.n_vars if cfg.rep_cond else len(DATA_SCALES[cfg.dataset])
     if not 0 <= args.intervene_var < n_vars:
         raise SystemExit(f"--intervene_var {args.intervene_var}: {cfg.name} has {n_vars} variables")
-    if cfg.use_kernels and cfg.use_bf16:
-        prepare_forward(args.device)  # at start-up, not inside the first batch
+    prepare(args.device, cfg.use_kernels, cfg.use_bf16)  # at start-up, not inside the first batch
     requests = (synthetic_requests(cfg, args.synthetic, args.seed) if args.synthetic
                 else load_requests(cfg, args.input))
     records, answers = [], []

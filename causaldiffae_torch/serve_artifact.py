@@ -12,8 +12,9 @@ batch i+1 is dispatched before batch i is copied to the host. The sibling
 AOTInductor package is preferred; where it does not load (another card,
 device type or torch), the reason is printed and the portable program
 serves on the same device, reported as ``"aot": false``. Both run the
-attention kernel when the manifest says ``"attention": "kernel"``;
-``attention_launches`` counts its launches in this run.
+attention kernel when the manifest says ``"attention": "kernel"``, and the
+norm kernels where ``"norm_nodes"`` is not 0; ``attention_launches`` and
+``norm_launches`` count their forward launches in this run.
 
 Usage:
   python -m causaldiffae_torch.serve_artifact --artifact artifacts/do.pt2 \\
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from .ops.attention import attention_fwd
+from .ops.norm_act import norm_act_fwd
 from .serving import COMPILED_SUFFIX, load_artifact, load_compiled_artifact
 
 __all__ = ["main"]
@@ -132,7 +134,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return out[:B - pad] if pad else out
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    launches0 = attention_fwd.launches
+    launches0, norm0 = attention_fwd.launches, norm_act_fwd.launches
     prewarm_s = None
     if args.prewarm:   # off the traffic path, with a seed no traffic call uses
         t0 = time.perf_counter()
@@ -169,6 +171,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "steady_batch_s": steady, "steady_batch_p50_s": p50, "imgs_per_sec": B / steady,
         "pipelined": not args.no_pipeline, "aot": aot, "out": args.out,
         "attention_launches": attention_fwd.launches - launches0,
+        "norm_launches": norm_act_fwd.launches - norm0,
     }
     if prewarm_s is not None:
         report["prewarm_s"] = prewarm_s

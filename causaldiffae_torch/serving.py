@@ -8,11 +8,12 @@ saved with ``torch.export.save`` into one file whose lifted constants are the
 checkpoint's weights, beside a JSON manifest (``<out>.json``). Beside it an
 AOTInductor package (``<out>`` + ``COMPILED_SUFFIX``) may hold the same
 program compiled for one card. Neither needs the model's code: this module
-imports torch and ``causaldiffae_torch.ops`` (which registers the attention
-op an artifact's graph calls, ``torch.ops.causaldiffae.attention_fwd``) and
-nothing of ``models/``, ``diffusion/``, ``evals/`` or ``config``. A
-plain-route artifact (manifest ``"attention": "plain"``) loads with
-``torch.export.load`` alone.
+imports torch and ``causaldiffae_torch.ops`` (which registers the ops an
+artifact's graph calls, ``torch.ops.causaldiffae.attention_fwd`` and
+``torch.ops.causaldiffae.norm_act_fwd``) and nothing of ``models/``,
+``diffusion/``, ``evals/`` or ``config``. A plain-route artifact (exported
+with ``use_kernels`` off: manifest ``"attention": "plain"``, ``"norm_nodes":
+0``) loads with ``torch.export.load`` alone.
 
 A ``torch.Generator`` cannot live in an exported graph, so the program takes
 the chain's draws as inputs after the request's own (``x``, ``y``, ``c``,
@@ -36,10 +37,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .ops import attention  # registers torch.ops.causaldiffae.attention_fwd
+from .ops import norm_act  # registers torch.ops.causaldiffae.norm_act_fwd
 
 __all__ = ["export_artifact", "load_artifact", "export_compiled_artifact",
-           "load_compiled_artifact", "attention_nodes", "draw_inputs", "MANIFEST_SUFFIX",
-           "COMPILED_SUFFIX"]
+           "load_compiled_artifact", "attention_nodes", "norm_nodes", "draw_inputs",
+           "MANIFEST_SUFFIX", "COMPILED_SUFFIX"]
 
 MANIFEST_SUFFIX = ".json"
 COMPILED_SUFFIX = ".aoti.pt2"   # AOTInductor wants a package path ending in .pt2
@@ -55,12 +57,20 @@ def _shape(t: torch.Tensor, batched_dim: Optional[int]) -> List:
     return ["b" if i == batched_dim else int(n) for i, n in enumerate(t.shape)]
 
 
-def attention_nodes(ep) -> int:
-    """Calls of the attention op in an exported program's graphs, the loop
-    bodies' included."""
-    op = torch.ops.causaldiffae.attention_fwd.default
+def op_nodes(ep, op) -> int:
+    """Calls of ``op`` in an exported program's graphs, the loop bodies' included."""
     return sum(1 for gm in ep.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
                for n in gm.graph.nodes if n.target is op)
+
+
+def attention_nodes(ep) -> int:
+    """Calls of the attention op in an exported program's graphs."""
+    return op_nodes(ep, torch.ops.causaldiffae.attention_fwd.default)
+
+
+def norm_nodes(ep) -> int:
+    """Calls of the norm op in an exported program's graphs."""
+    return op_nodes(ep, torch.ops.causaldiffae.norm_act_fwd.default)
 
 
 def export_artifact(module: torch.nn.Module, example_args: Tuple, out_path: str,
@@ -108,6 +118,7 @@ def export_artifact(module: torch.nn.Module, example_args: Tuple, out_path: str,
                      "dtype": _dtype_name(fake.dtype)}],
         "attention": "kernel" if n_attn else "plain",
         "attention_nodes": n_attn,
+        "norm_nodes": norm_nodes(ep),
         "bytes": p.stat().st_size,
     })
     Path(str(p) + MANIFEST_SUFFIX).write_text(json.dumps(manifest, indent=2))

@@ -56,7 +56,7 @@ import torch
 
 from .config import create_diffusion, get_config
 from .data import load_data, synthetic_iterator
-from .ops import _build
+from .ops import prepare
 from .parallel import init_from_env, init_grid
 from .serve import build_model, str2bool
 from .training import run_training
@@ -112,9 +112,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[TrainState, List[dict]]:
         init_grid(cfg.model_parallel)  # before the data: a data row feeds its TP ranks alike
     except ValueError as e:
         raise SystemExit(f"--model_parallel {cfg.model_parallel}: {e}") from None
-    if device.startswith("cuda") and cfg.use_kernels and cfg.use_bf16:
-        _build.build("attention_fwd")  # at start-up, not inside the first step
-        _build.build("attention_bwd")
+    prepare(device, cfg.use_kernels, cfg.use_bf16, training=True)  # not inside the first step
     formats = os.environ.get("OPENAI_LOG_FORMAT", "log,csv,json").split(",")
     logger.configure(dir=args.logdir, format_strs=formats if args.logdir else [])
     logger.log(f"config: {cfg}")

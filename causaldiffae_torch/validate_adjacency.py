@@ -28,7 +28,7 @@ import torch
 
 from .config import create_diffusion, get_config
 from .data import synthetic_iterator
-from .ops import _build
+from .ops import prepare
 from .serve import build_model
 from .training.loop import run_training
 
@@ -84,9 +84,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         # (the only signal that can move A) is felt
         kl_anneal_steps=args.steps, log_interval=max(args.steps // 10, 1),
         **({"batch_size": args.batch_size} if args.batch_size else {}))
-    if args.device.startswith("cuda") and cfg0.use_kernels and cfg0.use_bf16:
-        _build.build("attention_fwd")
-        _build.build("attention_bwd")
+    prepare(args.device, cfg0.use_kernels, cfg0.use_bf16, training=True)
     results = {"preset": args.preset, "steps": args.steps, "threshold": args.threshold,
                "truth": truth.tolist(), "runs": []}
     pooled = {"tp": 0, "fp": 0, "fn": 0}

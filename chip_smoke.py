@@ -33,6 +33,26 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    with its times (and the dq and dk/dv kernels' device times per launch
    apart, from torch.profiler's kernel events), SDPA's backward time
    (forward + backward minus forward) and its bound;
+3c. the norm kernels (``csrc/norm_act.cu``): built, ptxas's report (raising
+   where a forward kernel spills, or a backward one spills more than
+   ``NORM_BWD_SPILL`` bytes), then at every shape of the pendulum UNet's 62
+   norms at batch 32 and 16 (scale-shift and SiLU; SiLU alone on the fp32
+   output norm): the statistics within 1e-5 of the plain ones, the forward
+   equal bit for bit to the eager chain's elementwise ops on them, and in
+   bf16 equal to the eager chain in at least 99% of elements, in fp32 within
+   1e-5; the backward, fed the kernel's statistics, within one ulp (bf16
+   outputs) plus 1e-4 of its terms' magnitudes of the plain fp32 formula
+   (``tests/_norm_reference.py``, as the card tests), d_weight and d_bias
+   equal across two launches; with their times beside the byte bound, the
+   eager chain's and ``F.group_norm``'s (the yardstick), and their sums
+   weighted by each shape's calls; then one pendulum UNet forward without a
+   gradient and one with a backward: 62 norm launches each way. The norm
+   launch counters are reset with the attention ones before every main path
+   below and read after it: each UNet call launches the forward once per
+   ``GroupNorm32`` as it launches the attention forward once per block, and
+   each backward the backward alike (forward at least as often under remat);
+   the counts by path are the norm kernels' records, and a path that breaks
+   that rule fails the run after the last phase;
 4. one full-width ``denoise`` with the kernel, with the plain attention and
    with fp64 attention, on the same random weights: the kernel's eps may
    stand at most 1.5x as far from the fp64 one as the plain version's; the
@@ -168,7 +188,7 @@ toolkit (nvcc); imports nothing of JAX or of the JAX package. Phases:
    (bit-equal under ``determinism.pin``, or within 1e-2) and each one's
    peak memory; then each one's device time per step, in turns.
 
-The phases run in the order 1-8, 12, 13a, 13b, 16a, 16b, 8b, 9, 10, 11, 14, 15.
+The phases run in the order 1-3, 3b, 3c, 4-8, 12, 13a, 13b, 16a, 16b, 8b, 9, 10, 11, 14, 15.
 Each phase prints its wall time. Prints the card line and one
 ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -237,6 +257,9 @@ BWD_KERNELS = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 # the attention launches of one UNet call of each preset (forward; the same
 # count of backward launches per train step)
 ATTN_PER_CALL = {"morphomnist_causaldae": 8, "circuit_causaldae": 15, "pendulum_causaldae": 1}
+NORMS_PER_CALL = {"morphomnist_causaldae": 55, "circuit_causaldae": 104, "pendulum_causaldae": 62}
+NORM_BY_PATH = {}     # path -> [forward, backward] norm launches, for the kernels' records
+NORM_FAULTS = []      # paths whose norm launches broke the rule, raised after the last phase
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 logsumexp: exp2 and sums in another order
 FP64_BATCH = 16         # the fp64 gradient check runs on the first 16 batch elements
 TRAIN_STEPS = 8
@@ -603,6 +626,167 @@ def check_backward(ops, B, T, H, d, gen):
     return rec
 
 
+# phase 3c: the norm kernels at the pendulum UNet's shapes, (C, spatial) and
+# the calls per UNet forward at that shape (of 62), bf16 unless marked
+NORM_SHAPES = [(128, (96, 96), 10), (256, (96, 96), 3), (384, (96, 96), 1),
+               (128, (48, 48), 1), (256, (48, 48), 9), (384, (48, 48), 1), (512, (48, 48), 2),
+               (640, (48, 48), 1), (256, (24, 24), 1), (384, (24, 24), 9), (640, (24, 24), 1),
+               (768, (24, 24), 2), (896, (24, 24), 1), (384, (12, 12), 1), (512, (12, 12), 13),
+               (896, (12, 12), 1), (1024, (12, 12), 3), (512, (144,), 1)]
+NORM_FP32 = (128, (96, 96), 1)   # the output norm
+# the vector path's backward instantiations keep to 64 registers and spill
+# 44-52 B (stack 48-56 B) at their measured times (NVIDIA H100 80GB HBM3,
+# 700.00 W); more than this fails phase 3c
+NORM_BWD_SPILL = 64
+
+
+def norm_bound_ms(numel, esize, tensors):
+    """Least time (ms) to move ``tensors`` full activations of ``numel``
+    elements of ``esize`` bytes once each at the HBM rate (forward: x read, y
+    written; backward: x and dy read, dx written)."""
+    return tensors * numel * esize / PEAK_BYTES * 1e3
+
+
+def check_norm(na, B, C, spatial, dtype, gen):
+    """The norm kernels vs their plain versions at one shape (scale-shift and
+    SiLU, as the ResBlocks call them; SiLU alone for the fp32 output norm),
+    raising as phase 3c states, and their times beside the bound, the eager
+    chain and the library's ``F.group_norm`` (the yardstick; the port never
+    calls it). Returns the record."""
+    import torch.nn.functional as F
+    from _norm_reference import bwd_errors, bwd_magnitudes, chain_from_stats
+
+    x = (1.5 * torch.randn(B, C, *spatial, generator=gen, device="cuda") + 0.3).to(dtype)
+    dy = torch.randn(B, C, *spatial, generator=gen, device="cuda").to(dtype)
+    w = 1.0 + 0.2 * torch.randn(C, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+    ss = dtype == torch.bfloat16
+    scale, shift = (torch.chunk((0.3 * torch.randn(B, 2 * C, generator=gen, device="cuda")
+                                 ).to(dtype), 2, dim=-1) if ss else (None, None))
+    args = (w, b, 32, 1e-5, scale, shift, True)
+    what = f"norm on {(B, C, *spatial)} {dtype}"
+    y, mean, rstd = na.norm_act_fwd(x, *args, with_stats=True)
+    pm, pr = na.norm_act_stats_plain(x, 32, 1e-5)
+    stats_err = max(float((mean - pm).abs().max()), float((rstd - pr).abs().max()))
+    stats_ok = all(torch.allclose(k, p, rtol=1e-5, atol=1e-5)
+                   for k, p in ((mean, pm), (rstd, pr)))
+    on_stats = torch.equal(y, chain_from_stats(x, mean, rstd, w, b, scale, shift, True))
+    want = na.norm_act_plain(x, *args)
+    diff = (y.float() - want.float()).abs()
+    equal = float((diff == 0).float().mean())
+    got = na.norm_act_bwd(x, dy, *args, mean, rstd)
+    again = na.norm_act_bwd(x, dy, *args, mean, rstd)
+    plain = na.norm_act_bwd_plain(x, dy, *args, (mean, rstd))   # on the kernel's statistics
+    excess = bwd_errors(got, plain, bwd_magnitudes(x, dy, w, b, scale, shift, True, mean, rstd))
+    dx_err = float((got[0].float() - plain[0].float()).abs().max())
+    dw_rel = float((got[1] - plain[1]).norm() / plain[1].norm())
+    if not (stats_ok and on_stats):
+        raise AssertionError(f"{what}: statistics {stats_err:.3e} from the plain ones (limit "
+                             f"1e-5 + 1e-5 of them), output {'equal' if on_stats else 'not equal'} "
+                             "to the eager chain's elementwise ops on them")
+    if equal < 0.99 if ss else not torch.allclose(y, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{what}: {equal:.4f} of the elements equal the eager chain's, "
+                             f"max abs difference {float(diff.max()):.3e}")
+    if any(e is not None and e > 0 for e in excess):
+        raise AssertionError(f"{what}: the backward (dx, d_weight, d_bias, d_scale, d_shift) "
+                             f"exceeds one ulp + 1e-4 of its terms' magnitudes by {excess}")
+    if not all(torch.equal(u, v) for u, v in zip(got[:3], again[:3])):
+        raise AssertionError(f"{what}: two backward launches differ")
+    numel, esize = x.numel(), x.element_size()
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    eager = lambda: na.norm_act_plain(*leaves, *args[2:])
+    lib_w, lib_b = w.to(dtype).requires_grad_(True), b.to(dtype).requires_grad_(True)
+    library = lambda: F.group_norm(leaves[0], 32, lib_w, lib_b, 1e-5)
+    rec = {
+        "shape": [B, C, *spatial], "dtype": str(dtype).removeprefix("torch."),
+        "plan": na.plan(C, math.prod(spatial), 32, dtype),
+        "equal_share": equal, "max_abs_err": float(diff.max()), "stats_err": stats_err,
+        "dx_max_abs_err": dx_err, "d_weight_rel_err": dw_rel, "bwd_excess": excess,
+        "fwd_ms": time_ms(lambda: na.norm_act_fwd(x, *args)),
+        "fwd_stats_ms": time_ms(lambda: na.norm_act_fwd(x, *args, with_stats=True)),
+        "bwd_ms": time_ms(lambda: na.norm_act_bwd(x, dy, *args, mean, rstd)),
+        "fwd_bound_ms": norm_bound_ms(numel, esize, 2),
+        "bwd_bound_ms": norm_bound_ms(numel, esize, 3),
+        "eager_fwd_ms": time_ms(eager, iters=5),
+        "eager_bwd_ms": max(time_ms(lambda: torch.autograd.grad(eager(), leaves, dy), iters=5)
+                            - time_ms(eager, iters=5), 0.0),
+        "library_fwd_ms": time_ms(library),
+        "library_bwd_ms": max(time_ms(lambda: torch.autograd.grad(library(), leaves[:1], dy))
+                              - time_ms(library), 0.0),
+    }
+    print(f"norm {rec['shape']} {rec['dtype']} plan {rec['plan']}: equal {equal:.5f}, max abs "
+          f"err {rec['max_abs_err']:.3e}, stats err {stats_err:.2e}, dx max abs err "
+          f"{dx_err:.3e}, d_weight rel err {dw_rel:.3e}; fwd {1e3 * rec['fwd_ms']:.1f} us "
+          f"(with stats {1e3 * rec['fwd_stats_ms']:.1f}), bound {1e3 * rec['fwd_bound_ms']:.1f} us "
+          f"({100 * rec['fwd_bound_ms'] / rec['fwd_ms']:.1f}%), eager chain "
+          f"{1e3 * rec['eager_fwd_ms']:.1f}, F.group_norm {1e3 * rec['library_fwd_ms']:.1f}; "
+          f"bwd {1e3 * rec['bwd_ms']:.1f} us, bound {1e3 * rec['bwd_bound_ms']:.1f} us "
+          f"({100 * rec['bwd_bound_ms'] / rec['bwd_ms']:.1f}%), eager chain "
+          f"{1e3 * rec['eager_bwd_ms']:.1f}, F.group_norm {1e3 * rec['library_bwd_ms']:.1f}",
+          flush=True)
+    return rec
+
+
+def norm_phase(gen):
+    """Phase 3c: the norm kernels built (ptxas's report), checked and timed
+    at the pendulum UNet's shapes at the serving batch (16) and the training
+    batch (32), as the module's docstring states; then one pendulum UNet
+    forward without a gradient and one with a backward at batch 2, counting
+    the norm launches (62 each way). Returns the records and the kernels'
+    ptxas reports."""
+    from causaldiffae_torch.config import create_model, get_config
+    from causaldiffae_torch.ops import _build
+    from causaldiffae_torch.ops import norm_act as na
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))   # _norm_reference: the card tests' bounds
+    seconds, log = _build.build("norm_act")
+    print(f"nvcc csrc/norm_act.cu: {seconds:.2f} s")
+    ptxas = _build.ptxas_report(log)
+    for r in ptxas:   # names as mangled: the demangler takes int arguments
+        print(f"ptxas {r['name']}: {r['registers']} registers, spill {r['spill_stores']} B "
+              f"stored / {r['spill_loads']} B loaded, stack {r['stack']} B, shared memory "
+              f"{r['smem_static']} B static", flush=True)
+    spilled = [r["name"] for r in ptxas if r["spill_stores"] > (
+        NORM_BWD_SPILL if "norm_act_bwd_kernel" in r["name"] else 0)]
+    if spilled or len(ptxas) < 9:
+        raise AssertionError(f"norm kernels past their spill allowance: {spilled} (of "
+                             f"{len(ptxas)} instantiations reported)")
+    shapes = [(C, spatial, n, torch.bfloat16) for C, spatial, n in NORM_SHAPES]
+    shapes.append((*NORM_FP32, torch.float32))
+    recs = []
+    for B in (32, 16):
+        rows = [(n, check_norm(na, B, C, spatial, dtype, gen)) for C, spatial, n, dtype in shapes]
+        recs += [r for _, r in rows]
+        for key in ("fwd", "bwd"):
+            ms, bound, eager = (sum(n * r[f"{k}_ms"] for n, r in rows)
+                                for k in (key, f"{key}_bound", f"eager_{key}"))
+            print(f"norm {key} at B={B}, the shapes above weighted by their calls "
+                  f"({sum(n for n, _ in rows)} of 62): kernels {ms:.3f} ms, bound {bound:.3f} ms "
+                  f"({100 * bound / ms:.1f}%), eager chain {eager:.3f} ms", flush=True)
+    cfg = get_config("pendulum_causaldae")
+    model = create_model(cfg, device="cuda")
+    x = torch.randn(2, 96, 96, 4, generator=gen, device="cuda")
+    t = torch.tensor([10, 500], device="cuda")
+    z = torch.randn(2, cfg.rep_dim, generator=gen, device="cuda")
+    nf, nb = na.norm_act_fwd.launches, na.norm_act_bwd.launches
+    with torch.no_grad():
+        model.denoise(x, t, z=z)
+    torch.cuda.synchronize()
+    serve_calls = na.norm_act_fwd.launches - nf
+    nf = na.norm_act_fwd.launches
+    model.denoise(x, t, z=z).float().square().mean().backward()
+    torch.cuda.synchronize()
+    train_calls = (na.norm_act_fwd.launches - nf, na.norm_act_bwd.launches - nb)
+    print(f"pendulum UNet: {serve_calls} norm forward launches per call without a gradient, "
+          f"{train_calls[0]} forward and {train_calls[1]} backward with one", flush=True)
+    if serve_calls != 62 or train_calls != (62, 62):
+        raise AssertionError("the pendulum UNet's 62 GroupNorm32 calls did not all launch the "
+                             "norm kernels")
+    del model
+    torch.cuda.empty_cache()
+    return {"fwd": recs, "ptxas": ptxas}
+
+
 class PlainAttention(torch.autograd.Function):
     """The kernels' plain versions as one differentiable attention: the plain
     forward, and K2's gradient in fp32 einsums (``attention_bwd_plain``)."""
@@ -681,8 +865,36 @@ def rms(a):
 
 
 def reset_counts(ops):
+    from causaldiffae_torch.ops import norm_act as na
+
     ops.attention_fwd.launches = ops.attention_fwd.lse_launches = 0
     ops.attention_bwd.launches = 0
+    na.norm_act_fwd.launches = na.norm_act_bwd.launches = 0
+
+
+def norm_counts():
+    """(forward, backward) norm launches since the last reset."""
+    from causaldiffae_torch.ops import norm_act as na
+
+    return [na.norm_act_fwd.launches, na.norm_act_bwd.launches]
+
+
+def norms_match(path, name, attn, norms=None, remat=False):
+    """Record ``norms`` (default: :func:`norm_counts`) under ``path`` and hold
+    them to the attention launches ``attn`` (forward, with lse, backward) of
+    the same path on preset ``name``: one forward per ``GroupNorm32`` for each
+    UNet call that the attention forwards count (at least that under remat,
+    which runs a ResBlock's forward again), one backward per norm for each
+    attention backward's call."""
+    norms = list(norm_counts() if norms is None else norms)
+    NORM_BY_PATH[path] = norms
+    a, n = ATTN_PER_CALL[name], NORMS_PER_CALL[name]
+    fwd_ok = norms[0] * a >= attn[0] * n if remat else norms[0] * a == attn[0] * n
+    if not (norms[0] and fwd_ok and norms[1] * a == attn[2] * n):
+        NORM_FAULTS.append(f"{path}: norm launches {norms} beside attention launches "
+                           f"{list(attn)}, expected {n} norms per {a} attention blocks")
+        print(f"NORM LAUNCH FAULT {NORM_FAULTS[-1]}", flush=True)
+    return norms
 
 
 def counts(ops):
@@ -808,6 +1020,7 @@ def train_phase(cfg, ops, gen):
                                   total_steps=TRAIN_STEPS, log_interval=1, device="cuda")
     fwd, lse_launches, bwd = counts(ops)
     launches = {"attention_fwd": fwd, "attention_bwd": bwd}
+    norms_match("training", cfg.name, counts(ops))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_records(cfg.name, records, range(1, TRAIN_STEPS + 1))
     if launches != {k: 8 * TRAIN_STEPS for k in launches}:
@@ -876,6 +1089,8 @@ def cli_phase(name, ops, gen, work, *, steps, save_interval, sampler, sample_ste
                              f"{(fwd, lse, bwd)}, expected {n} each per step")
     state, second = train.main(args + ["--total_steps", str(steps[1])])
     train_counts = counts(ops)
+    tag = name.split("_")[0]
+    norms_match(f"training_{tag}", name, train_counts)
     peak_train = torch.cuda.max_memory_allocated() / 1e9
     more = steps[1] - steps[0]
     if (state.step, train_counts) != (steps[1], (fwd + n * more, lse + n * more,
@@ -911,6 +1126,7 @@ def cli_phase(name, ops, gen, work, *, steps, save_interval, sampler, sample_ste
     torch.cuda.reset_peak_memory_stats()
     records = serve.main(serve_args)
     fwd, lse, _ = counts(ops)
+    norms_match(f"serving_{tag}", name, counts(ops))
     peak_serve = torch.cuda.max_memory_allocated() / 1e9
     calls = sum(r["unet_calls"] for r in records)
     with np.load(out) as z:
@@ -1115,6 +1331,8 @@ def evaluation_phase(name, ops, ckpt, out, *, num_samples, sampler, sample_steps
         raise AssertionError(f"{name}: {calls[0]} UNet calls, expected {chain} per chain for the "
                              f"reconstruction and {len(names)} x {n_batches} do() batches")
     fwd = check_launches(f"{name} evaluation", ops, calls[0], ATTN_PER_CALL[name])
+    norms_match("evaluation" + ("" if name.startswith("morpho") else f"_{name.split('_')[0]}"),
+                name, counts(ops))
     keys = {f"{k}_{v}" for v in names for k in ("mae", "clf_val_mse")} | (
         {"fid"} if compute_fid else set())
     if set(result) != keys or not all(math.isfinite(v) for v in result.values()) \
@@ -1207,6 +1425,7 @@ def nll_and_sampling_phase(ops, gen, ckpt, work):
         raise AssertionError(f"nll: total_bpd {total} after {calls[0]} UNet calls, expected a "
                              f"finite positive bpd after {cfg.diffusion_steps}")
     nll_fwd = check_launches("nll", ops, calls[0], ATTN_PER_CALL[cfg.name])
+    norms_match("nll", cfg.name, counts(ops))
     print(f"nll: one batch of 8, {calls[0]} UNet calls in {seconds:.2f} s "
           f"({1e3 * seconds / calls[0]:.2f} ms per UNet call, the encoder and files included), "
           f"total_bpd {total:.4f}, "
@@ -1222,6 +1441,7 @@ def nll_and_sampling_phase(ops, gen, ckpt, work):
     seconds = time.perf_counter() - t0
     check_samples("sample", path, (16, 28, 28, 1), key="arr_0")
     sample_fwd = check_launches("sample", ops, calls[0], ATTN_PER_CALL[cfg.name])
+    norms_match("prior_sampling", cfg.name, counts(ops))
     print(f"sample: 16 prior samples, DPM++-25, {calls[0]} UNet calls in {seconds:.3f} s, "
           f"{sample_fwd} forward launches, none with lse", flush=True)
     return {"nll": nll_fwd, "prior_sampling": sample_fwd}
@@ -1298,6 +1518,7 @@ def flow_dropout_phase(ops, gen, work):
     straight, records = run_training(cfg, m, diffusion, stamps, total_steps=4, log_interval=1,
                                      device="cuda")
     launches = counts(ops)
+    norms_match("training_flow_dropout", cfg.name, launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_records("flow + dropout", records, range(1, 5))
     if launches != (8 * 4,) * 3:
@@ -1425,7 +1646,7 @@ def dp_rank(rank, world, store, work, ckpt):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     torch.save(flat_grads(state.model), os.path.join(work, f"dp-grad-{rank}.pt"))
-    launches = counts(ops)
+    launches, norms = counts(ops), norm_counts()
     times = []
     for _ in range(3):
         dist.barrier()
@@ -1434,7 +1655,7 @@ def dp_rank(rank, world, store, work, ckpt):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     print(json.dumps({"rank": rank, "part": "train", "first_step_s": first_s,
-                      "step_ms": times, "launches": launches,
+                      "step_ms": times, "launches": launches, "norms": norms,
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     del state, step
     torch.cuda.empty_cache()
@@ -1460,6 +1681,7 @@ def dp_rank(rank, world, store, work, ckpt):
                                        "--seed", str(SEED)])
     print(json.dumps({"rank": rank, "part": "eval", "result": result, "wrote": wrote,
                       "seconds": time.perf_counter() - t0, "launches": counts(ops),
+                      "norms": norm_counts(),
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     dist.destroy_process_group()
 
@@ -1551,6 +1773,9 @@ def data_parallel_phase(ops, work, ckpt):
         raise AssertionError("data-parallel evaluation: the ranks' results differ, rank 1 wrote, "
                              "the MAE is not finite or the archive is not both ranks'")
     shutil.rmtree(os.path.join(work, "dp-eval"))
+    for r in range(2):
+        norms_match(f"training_dp_rank{r}", cfg.name, train[r]["launches"], train[r]["norms"])
+        norms_match(f"evaluation_dp_rank{r}", cfg.name, ev[r]["launches"], ev[r]["norms"])
     return {"training_dp": train[0]["launches"], "evaluation_dp": ev[0]["launches"]}
 
 
@@ -1612,7 +1837,7 @@ def tp_rank(rank, world, store, work):
     data = SyncedStamps(iter([batch] * (TP_STEPS + 1)))
     state, records = run_training(cfg, dp_model(cfg), diffusion, data, total_steps=TP_STEPS,
                                   log_interval=1, device="cuda", ckpt_dir=ckpt)
-    launches = counts(ops)
+    launches, norms = counts(ops), norm_counts()
     check_records(f"tp rank {rank}", first + records, range(1, TP_STEPS + 1))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     all_reduces = dict(TP_ALL_REDUCES)
@@ -1631,7 +1856,7 @@ def tp_rank(rank, world, store, work):
         "rank": rank, "blocks": len(plan.blocks), "leaves": len(plan.leaves),
         "first_step_s": first_s, "resumed_at": records[0]["step"] - 1,
         "step_ms": [1e3 * (b - a) for a, b in zip(data.stamps, data.stamps[1:])],
-        "launches": launches, "all_reduces": all_reduces, "peak_gb": peak_gb,
+        "launches": launches, "norms": norms, "all_reduces": all_reduces, "peak_gb": peak_gb,
         "loss": [r["loss"] for r in first + records],
         "params": sum(p.numel() for p in model.parameters())}), flush=True)
     dist.destroy_process_group()
@@ -1757,6 +1982,8 @@ def tensor_parallel_phase(ops, work, card_line):
         os.remove(os.path.join(work, f"{tag}-grad-{r}.pt"))
     shutil.rmtree(os.path.join(work, "tp-ckpt"))
     shutil.rmtree(one_ckpt)
+    for r, rep in enumerate(reps):
+        norms_match(f"training_tp_rank{r}", cfg.name, rep["launches"], rep["norms"], remat=True)
     return reps[0]["launches"]
 
 
@@ -1826,6 +2053,10 @@ def served_artifact(ops, serve_artifact, artifact, label, argv, calls_per_chain,
         raise AssertionError(f"{label}: (forward, with lse, backward) launches {counts(ops)} "
                              f"for {chains} chains of {calls_per_chain} UNet calls, expected "
                              f"{per_call} forward per call")
+    norms_match(f"artifact_{label}", "morphomnist_causaldae", counts(ops))
+    if rep["norm_launches"] != norm_counts()[0]:
+        NORM_FAULTS.append(f"artifact_{label}: the report's {rep['norm_launches']} norm "
+                           f"launches against the counter's {norm_counts()[0]}")
     check_samples(label, out, (ARTIFACT_REQUESTS, 28, 28, 1))
     return rep
 
@@ -2053,6 +2284,8 @@ def artifact_phase(ops, exporters, morpho_ckpt, filled_ckpt):
     if routes["fresh process"]["attention_launches"] != want:
         raise AssertionError(f"fresh process: {routes['fresh process']['attention_launches']} "
                              f"launches, expected {want}")
+    norms_match("artifact_fresh_process", "morphomnist_causaldae", (want, 0, 0),
+                (routes["fresh process"]["norm_launches"], 0))
     print(f"(b) the fresh consumer loaded no model code and served with aot "
           f"{routes['fresh process']['aot']}, {want} launches")
     cfg, model, _ = serve.load_checkpoint(morpho_ckpt, use_ema=False, device="cuda")
@@ -2097,6 +2330,7 @@ def artifact_phase(ops, exporters, morpho_ckpt, filled_ckpt):
                 not bool(torch.isfinite(imgs).all()):
             raise AssertionError(f"poly artifact at batch {b}: launches {counts(ops)}, shape "
                                  f"{tuple(imgs.shape)}")
+        norms_match(f"artifact_poly_b{b}", "morphomnist_causaldae", counts(ops))
     print(f"(d) DPM++-25 ({nodes} UNet calls) poly-batch artifact: export {pman['export_s']:.1f} s,"
           f" verify " + ", ".join(f"batch {v['batch']} {v['max_abs']:.3e}" for v in pman["verify"])
           + f" (atol {pman['verify'][0]['atol']:.1e}); served at batch 1 and {ARTIFACT_BATCH}, "
@@ -2111,6 +2345,7 @@ def artifact_phase(ops, exporters, morpho_ckpt, filled_ckpt):
             not bool(torch.isfinite(pimgs).all()):
         raise AssertionError(f"pendulum artifact: {eman['attention_nodes']} op nodes, launches "
                              f"{counts(ops)}")
+    norms_match("artifact_pendulum", "pendulum_causaldae", counts(ops))
     print(f"(e) pendulum DPM++-25 artifact: export {eman['export_s']:.1f} s, verify max|Δ| "
           f"{eman['verify'][0]['max_abs']:.3e} (atol {eman['verify'][0]['atol']:.1e}), "
           f"{counts(ops)[0]} launches for one chain (1 per UNet call)")
@@ -2255,6 +2490,9 @@ def main():
     bwd_recs = [check_backward(ops, *shape, gen) for shape in BWD_SHAPES]
     torch.cuda.empty_cache()
 
+    phase("3c. the norm kernels against their plain versions, with their times")
+    norm = norm_phase(gen)
+
     phase("4. full-width denoise: kernel vs plain attention")
     cfg = get_config("morphomnist_causaldae")
     model = create_model(cfg, device="cuda")
@@ -2348,6 +2586,7 @@ def main():
                              f"8 x {unet_calls} UNet calls")
     if ops.attention_fwd.lse_launches:
         raise AssertionError(f"{ops.attention_fwd.lse_launches} serving launches wrote lse")
+    norms_match("serving", cfg.name, counts(ops))
     cost = dispatch_cost(ops)
     print(f"host us per forward call at ({ARTIFACT_BATCH}, 784, 4, 32), enqueued back to back, "
           f"in turns: ctypes wrapper {[round(c, 2) for c in cost['wrapper']]}, dispatcher op "
@@ -2464,9 +2703,23 @@ def main():
                 "training_flow_dropout": flow["attention_bwd"],
                 "training_dp_rank0": dp["training_dp"][2], "training_tp_rank0": tp[2]}),
     ]
+    for i, (name, keys) in enumerate((
+            ("norm_act_fwd", ("fwd_ms", "fwd_stats_ms", "fwd_bound_ms", "eager_fwd_ms",
+                              "library_fwd_ms")),
+            ("norm_act_bwd", ("bwd_ms", "bwd_bound_ms", "eager_bwd_ms", "library_bwd_ms")))):
+        by_path = {path: n[i] for path, n in NORM_BY_PATH.items() if n[i]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "causaldiffae_torch/csrc/norm_act.cu",
+            "replaces": "the eager GroupNorm32 chain (XLA fused it on the TPU; no Pallas kernel)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "shapes": [{k: r[k] for k in ("shape", "dtype", "plan", *keys)} for r in norm["fwd"]],
+            "ptxas": [r for r in norm["ptxas"] if name in r["name"]],
+        })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
+    if NORM_FAULTS:
+        raise AssertionError("norm launches broke the rule on " + "; ".join(NORM_FAULTS))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

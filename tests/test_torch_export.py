@@ -9,8 +9,9 @@ export cases), and the chains' traceable form.
   and its answer bit-equal to ``make_counterfactual_fn`` on the same draws
   (that function is held to the JAX package in ``test_torch_serving.py``);
 - the prior artifact takes no x; a polymorphic artifact serves batches 1
-  and 3; a bf16 ``use_kernels`` export holds the attention op (the plain
-  version on the CPU); a plain-route artifact loads with torch alone.
+  and 3; a bf16 ``use_kernels`` export holds the attention op and one norm
+  op per GroupNorm32 (the plain versions on the CPU); a plain-route artifact
+  holds neither and loads with torch alone.
 
 Tiny fp32 model from a checkpoint; tolerances as stated per test.
 """
@@ -27,7 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _port_fixtures import export, make_checkpoint, one_torch_thread  # noqa: F401
+from _port_fixtures import export, make_checkpoint, one_torch_thread, tiny_kwargs  # noqa: F401
 from causaldiffae_tpu.diffusion import create_diffusion as jax_create_diffusion
 from causaldiffae_tpu.diffusion import sampling as jax_sampling
 from causaldiffae_torch import serving
@@ -45,9 +46,9 @@ def ckpt(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def counterfactual(ckpt, tmp_path_factory):
-    out = tmp_path_factory.mktemp("cf") / "do0.pt2"
+    out = tmp_path_factory.mktemp("cf") / "do0.pt2"   # the plain route: torch alone loads it
     manifest = export(ckpt, out, "--fn", "counterfactual", "--intervene_var", "0",
-                      "--batch_size", "4")
+                      "--batch_size", "4", "--use_kernels", "false")
     return str(out), manifest
 
 
@@ -133,6 +134,7 @@ def test_counterfactual_artifact_roundtrip(counterfactual):
     assert [d["name"] for d in saved["draws"]] == ["rep_noise", "abduction_noise"]
     assert saved["outputs"][0]["shape"] == [4, 28, 28, 1]
     assert saved["attention"] == "plain" and saved["device"] == "cpu"
+    assert saved["norm_nodes"] == 0   # the plain chain: the artifact loads with torch alone
     assert manifest["verify"][0]["max_abs"] <= manifest["verify"][0]["atol"]
     fn, _ = serving.load_artifact(out)
     x = torch.zeros(4, 28, 28, 1)
@@ -198,8 +200,16 @@ def test_kernel_route_export_holds_the_attention_op(tmp_path):
                       "--sampler", "dpm++", "--sample_steps", "3")
     assert manifest["attention"] == "kernel" and manifest["attention_nodes"] == 4
     assert manifest["verify"][0]["max_abs"] == 0.0
-    assert serving.attention_nodes(torch.export.load(str(out))) == 4
+    ep = torch.export.load(str(out))
+    assert serving.attention_nodes(ep) == 4
     assert attention_fwd.launches == launches
+    # each GroupNorm32 of the UNet's one graph is one norm node
+    from causaldiffae_torch.config import Config, create_model
+    from causaldiffae_torch.models import GroupNorm32
+
+    model = create_model(Config(**tiny_kwargs(use_bf16=True)), device="cpu")
+    norms = sum(isinstance(m, GroupNorm32) for m in model.modules())
+    assert manifest["norm_nodes"] == serving.norm_nodes(ep) == norms > 0
 
 
 def test_plain_artifact_loads_with_torch_alone(counterfactual):

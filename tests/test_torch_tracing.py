@@ -69,26 +69,31 @@ def test_a_span_that_raises_is_closed(fake_clock):
 
 
 def test_counters_and_the_attention_launches_reset(fake_clock, monkeypatch):
-    """``reset`` clears the counters of ``count``; the attention launch
-    counters are read where their module keeps them, and left alone."""
-    from causaldiffae_torch.ops import attention
+    """``reset`` clears the counters of ``count``; the attention and norm
+    launch counters are read where their modules keep them, and left alone."""
+    from causaldiffae_torch.ops import attention, norm_act
 
     monkeypatch.setattr(attention.attention_fwd, "launches", 3)
     monkeypatch.setattr(attention.attention_fwd, "lse_launches", 1)
     monkeypatch.setattr(attention.attention_bwd, "launches", 2)
+    monkeypatch.setattr(norm_act.norm_act_fwd, "launches", 62)
+    monkeypatch.setattr(norm_act.norm_act_bwd, "launches", 31)
     tracing.count("cdae.t.calls")
     tracing.count("cdae.t.calls", 2)
     counters = tracing.snapshot()["counters"]
     assert counters["cdae.t.calls"] == 3
     launches = {"cdae.attention_fwd.launches": 3, "cdae.attention_fwd.lse_launches": 1,
-                "cdae.attention_bwd.launches": 2}
+                "cdae.attention_bwd.launches": 2, "cdae.norm_act_fwd.launches": 62,
+                "cdae.norm_act_bwd.launches": 31}
     assert {k: counters[k] for k in launches} == launches
     attention.attention_fwd.launches += 1
+    norm_act.norm_act_bwd.launches += 31
     assert tracing.snapshot()["counters"]["cdae.attention_fwd.launches"] == 4
     tracing.reset()
-    assert tracing.snapshot() == {"spans": {}, "counters": {**launches,
-                                                            "cdae.attention_fwd.launches": 4}}
+    assert tracing.snapshot() == {"spans": {}, "counters": {
+        **launches, "cdae.attention_fwd.launches": 4, "cdae.norm_act_bwd.launches": 62}}
     assert attention.attention_fwd.launches == 4
+    assert norm_act.norm_act_bwd.launches == 62
 
 
 def test_span_table_is_self_ms_per_unit_largest_first():
