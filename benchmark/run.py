@@ -72,6 +72,17 @@ def set_cache_dirs(root: Path) -> None:
         os.environ[var] = str(build / sub)
 
 
+def one_cpu_thread() -> None:
+    """Give torch's CPU operators one thread, as a launcher such as
+    ``torchrun`` gives each rank: the port's host work is one Python thread
+    dispatching to the card, and the pool of OpenMP workers beside it spun
+    on another 0.44 of a core in training (the process's CPU seconds over
+    the window's, 1.44 with the pool, 1.00 without), which the machine's
+    other work shares. Set before torch is imported."""
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
+
+
 def load_module(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
@@ -286,8 +297,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.seed < 0:
         p.error("--seed must be >= 0")
     set_cache_dirs(ROOT)
+    one_cpu_thread()
     import torch
 
+    torch.set_num_threads(1)
     chips = {w["name"]: w["chips"] for w in _read(ROOT / "BENCHMARK.json")["workloads"]}
     need = chips.get(args.workload)
     if need is None:

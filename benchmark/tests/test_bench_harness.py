@@ -16,7 +16,9 @@ from benchmark import run as RUN
 from . import tiny
 
 REPO = Path(__file__).resolve().parents[2]
+DATA = Path(__file__).resolve().parent / "data"
 SEED = 2 ** 33 + 7    # beyond 32 bits: seeds may be that large
+CELLS = [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
 
 TOY_GENERATOR = '''
 import time
@@ -74,6 +76,42 @@ def test_a_new_cell_is_found_and_run_by_name(tmp_path):
     traced = RUN.run_cell("toy_cell", SEED, 1.0, True, "cpu", root=root)
     assert traced["metrics"] == {"toy_metric": {"value": 9.0, "unit": "count"}}
     assert list(traced)[-1] == "checks"
+
+
+def test_the_tiny_root_of_the_two_pendulum_cells_is_unchanged(tmp_path):
+    """From the benchmark as it stood with its two pendulum cells, the tiny
+    root's BENCHMARK.json is, byte for byte, the one written when the cell
+    lists were renamed by a fixed table."""
+    root = tiny.make_root(tmp_path, DATA / "two_cells.json")
+    assert (root / "BENCHMARK.json").read_text() == (DATA / "two_cells.tiny.json").read_text()
+
+
+def test_a_cell_added_as_data_joins_existing_metrics(tmp_path, root):
+    """A MorphoMNIST counterfactual cell added to the repo's BENCHMARK.json
+    by entries and list items alone: the tiny root builds from it, and the
+    tiny serving cell runs correct with the metrics it reports without it."""
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    cell = "morpho_cf_dpm25_b16"
+    if "morphomnist_causaldae" not in {c["name"] for c in bench["configs"]}:
+        bench["configs"].append({"name": "morphomnist_causaldae", "source": "morpho",
+                                 "file": "benchmark/configs/morphomnist_causaldae.json",
+                                 "reduced": [], "why": "morpho"})
+    if cell not in {w["name"] for w in bench["workloads"]}:
+        bench["workloads"].append({"name": cell, "config": "morphomnist_causaldae",
+                                   "traffic": "cf_dpm25_b16", "chips": 1, "why": "morpho"})
+    joined = {"cf_latency_p90_s", "launches_per_unet_call.serve", "attn_roofline.serve"}
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in joined and cell not in m["workloads"]:
+            m["workloads"].append(cell)
+    path = tmp_path / "BENCHMARK.json"
+    path.write_text(json.dumps(bench))
+    added = tiny.make_root(tmp_path / "added", path)
+    assert (json.loads((added / "BENCHMARK.json").read_text())
+            == json.loads((root / "BENCHMARK.json").read_text()))
+    res = RUN.run_cell(tiny.SERVE, SEED, 1.0, False, "cpu", root=added)
+    assert res["correct"], res["checks"]
+    today = RUN.Run(tiny.SERVE, SEED, 1.0, False, "cpu", root=root).end_to_end()
+    assert set(res["metrics"]) == {m["name"] for m in today} >= {"cf_latency_p90_s", "setup_s"}
 
 
 @pytest.mark.parametrize("cell", [tiny.TRAIN, tiny.SERVE])
@@ -175,7 +213,7 @@ def test_the_reference_imports_nothing_of_the_port():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["pendulum_train_b32", "pendulum_cf_dpm25_b16"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_cell_on_the_card(cell):
     """The command itself on a card, a short window: exit 0, correct."""
     import torch

@@ -1,6 +1,9 @@
 """A tiny copy of the benchmark for CPU tests: the harness's files, with
 small configurations, traffic and limits of its own in a directory of the
-test's, so the tests drive the whole run without a card."""
+test's, so the tests drive the whole run without a card.
+
+It takes any cell list: each cell a metric lists stands for the tiny cell of
+its traffic's generator, so a cell added as data needs no edit here."""
 
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ BENCH = Path(__file__).resolve().parent.parent
 
 TRAIN = "tiny_train"
 SERVE = "tiny_serve"
+# the tiny cell that stands for every cell of each generator
+TINY_CELL = {"train": TRAIN, "counterfactual": SERVE}
 
 MODEL = {"num_channels": 32, "num_res_blocks": 1, "num_heads": 2, "attention_resolutions": "16,8",
          "rep_cond": True, "causal_modeling": True, "masking": True, "drop_prob": 0.5,
@@ -48,8 +53,22 @@ LIMITS = {
 }
 
 
-def make_root(tmp: Path) -> Path:
-    """A benchmark root under ``tmp`` with the tiny cells."""
+def tiny_cells(bench: dict) -> dict:
+    """Each cell of ``bench`` whose traffic's generator has a tiny cell,
+    mapped to that tiny cell."""
+    out = {}
+    for w in bench["workloads"]:
+        path = BENCH / "traffic" / f"{w['traffic']}.json"
+        generator = json.loads(path.read_text()).get("generator") if path.exists() else None
+        if generator in TINY_CELL:
+            out[w["name"]] = TINY_CELL[generator]
+    return out
+
+
+def make_root(tmp: Path, bench_json: Path = BENCH.parent / "BENCHMARK.json") -> Path:
+    """A benchmark root under ``tmp`` with the tiny cells, its metrics those
+    of ``bench_json``; each metric's cell list becomes the tiny cells of its
+    cells, in order, each once, leaving out cells with no tiny cell."""
     root = Path(tmp) / "root"
     shutil.copytree(BENCH, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -59,15 +78,15 @@ def make_root(tmp: Path) -> Path:
         (root / "benchmark" / "traffic" / f"{name}.json").write_text(json.dumps(tr))
     for name, lim in LIMITS.items():
         (root / "benchmark" / "limits" / f"{name}.json").write_text(json.dumps(lim))
-    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    bench = json.loads(Path(bench_json).read_text())
+    tiny = tiny_cells(bench)
     bench["configs"] = [{"name": n, "source": "tiny", "file": f"benchmark/configs/{n}.json",
                          "reduced": [], "why": "tiny"} for n in CONFIGS]
     bench["workloads"] = [
         {"name": TRAIN, "config": "tiny_morpho", "traffic": "tiny_train", "chips": 1, "why": "t"},
         {"name": SERVE, "config": "tiny_morpho", "traffic": "tiny_cf", "chips": 1, "why": "t"}]
-    rename = {"pendulum_train_b32": TRAIN, "pendulum_cf_dpm25_b16": SERVE}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [rename[w] for w in m["workloads"]]
+            m["workloads"] = list(dict.fromkeys(tiny[w] for w in m["workloads"] if w in tiny))
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
